@@ -1,0 +1,26 @@
+"""tpu-lutvq, PyTorch + CUDA port for NVIDIA Hopper.
+
+The JAX/Pallas package ``tpu_lutvq`` is the reference; this package serves
+the same AQLM-2x8 Llama ``generate()`` path with PyTorch around two
+hand-written CUDA kernels (``csrc/``).  It imports no jax.
+
+- ``tpu_lutvq_torch.core``    — VQ<D,M,N,K> configs, params, golden model
+- ``tpu_lutvq_torch.kernels`` — LUT build, LUT-GEMV and dequant-matmul
+                                 wrappers, the nvcc build (``_build``)
+- ``tpu_lutvq_torch.models``  — QuantizedLinear, Llama decoder, INT8 KV cache
+- ``tpu_lutvq_torch.runtime`` — ``generate()``
+- ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package
+"""
+
+from tpu_lutvq_torch.core.config import (  # noqa: F401
+    VQConfig,
+    aqlm_2x8,
+    aqlm_1x16,
+    pq_ann,
+    rq_ann,
+    tmac,
+)
+from tpu_lutvq_torch.core.params import VQParams, init_vq_params  # noqa: F401
+from tpu_lutvq_torch.core import golden  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+The ``csrc/*.cu`` sources have a plain C interface.  On first use they are
+compiled with ``nvcc`` into one shared library for ``sm_90a`` and loaded
+with ``ctypes``.  The library's file name carries a hash of the sources and
+flags, so an unchanged tree reuses it and an edited one rebuilds.  It lives
+under ``build/kernels/`` at the checkout root (listed in ``.gitignore``), or
+under ``$TPU_LUTVQ_TORCH_BUILD_DIR``.  Nothing here runs at import time, and
+a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+_lib = None
+BUILD_SECONDS = None  # wall time of the first ``library()`` call (build or load)
+BUILD_LOG = ""  # nvcc's output (register, shared-memory and spill report)
+
+
+def build_dir() -> Path:
+    env = os.environ.get("TPU_LUTVQ_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    homes = [os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME]
+    cands = [shutil.which("nvcc")] + [str(Path(h) / "bin" / "nvcc") for h in homes if h]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are compiled on first use"
+    )
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.lutvq_lut_gemv.argtypes = [vp, vp, vp, vp, vp] + [i32] * 8 + [vp]
+    lib.lutvq_lut_gemv.restype = i32
+    lib.lutvq_dequant_mm.argtypes = [vp, vp, vp, vp, vp] + [i32] * 7 + [vp]
+    lib.lutvq_dequant_mm.restype = i32
+    lib.lutvq_error_string.argtypes = [i32]
+    lib.lutvq_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this tree has none."""
+    global _lib, BUILD_SECONDS, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    srcs = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in srcs:
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    out = build_dir() / f"libtpu_lutvq_kernels_{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{BUILD_LOG}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    BUILD_SECONDS = time.perf_counter() - t0
+    _lib = lib
+    return lib
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """Raw handle of torch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.lutvq_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    """Validate what a kernel is handed before its pointer crosses into C."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

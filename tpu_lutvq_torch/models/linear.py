@@ -1,0 +1,102 @@
+"""Quantized linear layers (counterpart of ``tpu_lutvq.models.linear``).
+
+``QuantizedLinear.apply`` dispatches between the LUT-GEMV kernel (small
+batches: decode) and the dequant-matmul kernel (prefill and large batches).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tpu_lutvq_torch.core.config import VQConfig
+from tpu_lutvq_torch.core.params import VQParams, init_vq_params
+from tpu_lutvq_torch.kernels.dequant_mm import dequant_matmul
+from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, lut_gemv, pack_params
+
+# strategy="auto": rows ≤ this go to lut_gemv, more to dequant_mm.  Provisional:
+# it reproduces what the JAX package's v5e cost model picks at every
+# Llama-2-7B projection shape, and stands until a crossover measured on the
+# H100 replaces it.
+LUT_GEMV_MAX_BATCH = 6
+
+
+def pick_strategy(rows: int) -> str:
+    return "lut_gemv" if rows <= LUT_GEMV_MAX_BATCH else "dequant_mm"
+
+
+class DenseLinear(NamedTuple):
+    """Unquantized layer (lm_head)."""
+
+    w: torch.Tensor  # (d_out, d_in)
+
+    @property
+    def d_in(self) -> int:
+        return self.w.shape[1]
+
+    @property
+    def d_out(self) -> int:
+        return self.w.shape[0]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.w.dtype) @ self.w.T
+
+
+class QuantizedLinear(NamedTuple):
+    """LUT-VQ quantized linear layer; ``cfg`` travels alongside."""
+
+    packed: PackedVQ
+
+    def apply(
+        self,
+        cfg: VQConfig,
+        x: torch.Tensor,
+        *,
+        strategy: str = "auto",
+        variant: str = "auto",
+        plain: bool = False,
+    ) -> torch.Tensor:
+        """x: ``(..., d_in)`` → ``(..., d_out)`` float32.
+
+        ``variant`` picks the lookup flavour under ``lut_gemv`` ("auto" → the
+        bf16 pair tables; "f32" → exact f32 tables).  ``plain=True`` runs the
+        kernels' plain versions on any device (reference runs only)."""
+        lead = x.shape[:-1]
+        xb = x.reshape(-1, x.shape[-1])
+        if strategy == "auto":
+            strategy = pick_strategy(xb.shape[0])
+        if strategy == "lut_gemv":
+            y = lut_gemv(cfg, self.packed, xb, variant=variant, plain=plain)
+        elif strategy == "dequant_mm":
+            if variant not in ("auto", "bf16x2"):
+                raise NotImplementedError(
+                    f"dequant_mm variant {variant!r} is not ported (bf16x2 tables only)"
+                )
+            y = dequant_matmul(cfg, self.packed, xb, plain=plain)
+        elif strategy == "dense_bf16":
+            from tpu_lutvq_torch.core.golden import dequantize
+
+            p = self.packed
+            codes = p.codes_t[: cfg.n_groups, : p.d_out].T.reshape(
+                p.d_out, cfg.n_codebook, cfg.n_subvec
+            ).transpose(1, 2)
+            scales = None if p.scales is None else p.scales[0, : p.d_out]
+            zps = None if p.zero_points is None else p.zero_points[0, : p.d_out]
+            w = dequantize(cfg, VQParams(p.codebook, codes, scales, zps))
+            y = xb.float() @ w.T
+        else:
+            raise ValueError(f"unknown strategy {strategy!r}")
+        return y.reshape(*lead, y.shape[-1])
+
+
+def make_quantized_linear(
+    generator: torch.Generator,
+    cfg: VQConfig,
+    d_out: int,
+    dtype=torch.float16,
+    with_scales: bool = True,
+) -> QuantizedLinear:
+    """Random-initialized quantized layer on ``generator.device``."""
+    params = init_vq_params(generator, cfg, d_out, dtype=dtype, with_scales=with_scales)
+    return QuantizedLinear(packed=pack_params(cfg, params))

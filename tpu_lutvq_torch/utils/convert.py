@@ -1,0 +1,70 @@
+"""Carry JAX-package parameters into the port.
+
+The inputs are the JAX package's pytrees with every leaf already turned
+into a numpy array (``jax.tree.map(np.asarray, tree)``), so this module
+needs no jax: it reads the containers' fields by name.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ
+from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear
+from tpu_lutvq_torch.models.llama import LayerWeights, LlamaConfig, LlamaWeights
+
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """numpy → torch, including ml_dtypes' bfloat16 (bit-exact)."""
+    a = np.array(a)  # a writable copy: jax hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def packed_from_numpy(p, device="cpu") -> PackedVQ:
+    """A JAX ``PackedVQ`` (numpy leaves) → the port's ``PackedVQ``."""
+    if getattr(p, "shards", 1) != 1 or getattr(p, "nibbles", False) or getattr(
+        p, "out_group", 1
+    ) != 1:
+        raise NotImplementedError("shard, nibble and out_group packs are not ported")
+
+    def opt(a):
+        return None if a is None else tensor_from_numpy(a, device)
+
+    return PackedVQ(
+        codes_t=tensor_from_numpy(p.codes_t, device),
+        codebook=tensor_from_numpy(p.codebook, device),
+        scales=opt(p.scales),
+        d_out=int(p.d_out),
+        zero_points=opt(p.zero_points),
+    )
+
+
+def llama_from_numpy(cfg: LlamaConfig, tree, device="cpu") -> LlamaWeights:
+    """A JAX ``LlamaWeights`` (per-layer tuple, numpy leaves) → the port's."""
+    if len(tree.layers) != cfg.n_layers:
+        raise ValueError(
+            f"tree has {len(tree.layers)} layers, cfg {cfg.n_layers} "
+            "(stacked weights are not ported)"
+        )
+    layers = tuple(
+        LayerWeights(
+            attn_norm=tensor_from_numpy(lw.attn_norm, device),
+            mlp_norm=tensor_from_numpy(lw.mlp_norm, device),
+            **{
+                name: QuantizedLinear(packed_from_numpy(getattr(lw, name).packed, device))
+                for name in _PROJECTIONS
+            },
+        )
+        for lw in tree.layers
+    )
+    return LlamaWeights(
+        embed=tensor_from_numpy(tree.embed, device),
+        layers=layers,
+        final_norm=tensor_from_numpy(tree.final_norm, device),
+        lm_head=DenseLinear(tensor_from_numpy(tree.lm_head.w, device)),
+    )
