@@ -5,26 +5,46 @@
 
 Phases, one result line each; any failure raises and exits non-zero:
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (nvcc, sm_90a) and load it;
-  2. kernels: each CUDA kernel against its plain PyTorch version at the
-     Llama-2-7B projection shapes and a padded d_out, at the row counts the
-     slice gives it, error and CUDA-event median times; a control with the
-     wrong rounding must fail each kernel's tolerance;
+  1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
+     parallel, sm_90a), link and load;
+  2. kernels: each CUDA kernel against its plain PyTorch version on the same
+     inputs, error and CUDA-event median times, at the shapes its path gives
+     it: the projections at the Llama-2-7B shapes and a padded d_out; flash
+     decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
+     layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
+     flash prefill at the chunked-admission and ragged-wave shapes, bf16 KV
+     once; both at head_dim 64 once.  Wrong-rounding controls must fail
+     each kernel's tolerance;
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
      serves (a) a ragged batch of 4 prompts for 32 new tokens and (b) one
      16-token prompt for 16 new tokens through ``generate()``; both kernels
      must launch in each request, outputs must be well formed, and the
      prefill and first decode-step logits must match a plain-version re-run
      within a tolerance that the plain-vs-plain noise (the plain versions
-     with reordered f32 sums) stays under.
+     with reordered f32 sums) stays under;
+  4. batcher: the same model serves 16 requests (prompts of 5-300 tokens,
+     24 new tokens each) through ``ContinuousBatcher`` with 8 slots: (i) slab
+     cache, ``attn="auto"``; (ii) paged pool, blocks of 256; (iii) slab,
+     ``attn="flash"``, chunked admission of two ~700-token prompts,
+     ``run(horizon=4, pipeline=True)``.  Each run must launch its attention
+     kernels, (ii) must give (i)'s tokens, and a B=8 flash decode step from
+     (i)'s caches must match the plain versions' step as in phase 3, where
+     the attention controls must fail too.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --profile   # phases 0-1, then the profile below
+
+profiles batcher run (i) instead: device busy share, launches and device
+time by kernel (torch.profiler), and a B=8 decode step, flash against
+einsum attention.
 """
 
 import contextlib
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,7 +68,55 @@ SHAPES = (  # (d_in, d_out): the Llama-2-7B projections, and a padded d_out
 )
 LUT_BATCHES = (1, 2, 3, 4, 8)  # decode rows: 1 token tile, ragged and full
 DEQUANT_ROWS = (7, 16, 256)  # prefill rows: partial and full 64-row tiles
-SUMMARY_AT = {"lut_gemv": "4096x4096 B=1", "dequant_mm": "4096x4096 rows=256"}
+# Attention kernels, max|kernel - plain| / max|plain| per call.  Kernel and
+# plain version compute the same function with the same rounding points and
+# differ only in f32 summation order, which now and then moves a p across a
+# bf16 rounding boundary: one such flip costs 2^-9 of that row's share of
+# the output, most in rows with few keys.  The controls move a rounding
+# point: "q_scale" puts sm_scale on the other side of q's bf16 rounding
+# (decode's rounding in prefill, prefill's in decode), "p_f32" leaves p
+# unrounded (at head_dim 64 only "p_f32" moves a rounding, ``live_controls``).
+# H100 readings: decode and paged <= 1.34e-5 against controls >= 2.57e-4;
+# prefill (tensor-core sums) <= 3.96e-4 against >= 1.04e-3.
+ATTN_TOL = {"flash_decode": 6e-5, "flash_decode_paged": 6e-5, "flash_prefill": 7e-4}
+ATTN_CONTROLS = ("q_scale", "p_f32")
+S_MAX = 2048  # cache rows per sequence (the model's max_seq)
+PAGE = 128  # pool block of the paged kernel runs
+POS_256 = (0, 255, 17, 128, 200, 3, 100, 254)  # B=8 positions under window 256
+POS_2048 = (0, 255, 256, 2047, 1000, 511, 1500, 64)  # and under window 2048
+DECODE_CASES = (  # (B, H, H_kv, window, pos per sequence, KV dtype, Dh)
+    (1, 32, 32, 256, (255,), "int8", 128),
+    (1, 32, 32, 2048, (2047,), "int8", 128),
+    (8, 32, 32, 256, POS_256, "int8", 128),
+    (8, 32, 32, 2048, POS_2048, "int8", 128),
+    (1, 64, 8, 256, (255,), "int8", 128),
+    (1, 64, 8, 2048, (2047,), "int8", 128),
+    (8, 64, 8, 256, POS_256, "int8", 128),
+    (8, 64, 8, 2048, POS_2048, "int8", 128),
+    (8, 32, 32, 2048, POS_2048, "bf16", 128),
+    (8, 32, 8, 2048, POS_2048, "int8", 64),  # the kernels' other head_dim
+)
+RAGGED = (0, 100, 700, 1500)
+PREFILL_CASES = (  # (H, H_kv, T, offsets, KV dtype, Dh): chunked admission, ragged B=4
+    (32, 32, 256, (0,), "int8", 128), (32, 32, 256, (256,), "int8", 128),
+    (32, 32, 256, (512,), "int8", 128), (32, 32, 64, RAGGED, "int8", 128),
+    (64, 8, 256, (0,), "int8", 128), (64, 8, 256, (256,), "int8", 128),
+    (64, 8, 256, (512,), "int8", 128), (64, 8, 64, RAGGED, "int8", 128),
+    (32, 32, 256, (512,), "bf16", 128), (32, 8, 64, RAGGED, "int8", 64),
+)
+SUMMARY_AT = {
+    "lut_gemv": "4096x4096 B=1", "dequant_mm": "4096x4096 rows=256",
+    "flash_decode": "B=8 H=32/32 W=2048 int8",
+    "flash_decode_paged": "B=8 H=32/32 W=2048 int8",
+    "flash_prefill": "B=1 H=32/32 T=256 off=(512,)",
+}
+# phase 4: 16 requests, prompts cycling over 5-300 tokens, 24 new tokens each
+PROMPT_LENS = (5, 300, 41, 128, 9, 260, 77, 33, 190, 6, 150, 290, 12, 64, 230, 100)
+NEW_TOKENS = 24
+LONG_PROMPTS = {3: 700, 10: 690}  # run (iii): two prompts past the chunk
+N_SLOTS = 8
+PAGED = dict(paged_blocks=32, paged_block_size=256)  # 31 usable: no admission waits
+PREFILL_CHUNK = 256
 
 
 def check(cond, msg):
@@ -74,6 +142,11 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def attention_modules():
+    return (importlib.import_module("tpu_lutvq_torch.kernels.flash_decode"),
+            importlib.import_module("tpu_lutvq_torch.kernels.flash_prefill"))
 
 
 def kernel_modules():
@@ -137,6 +210,39 @@ def plain_versions(parts=1, exact=True):
         yield
     finally:
         lg.lut_lookup_plain, dq.dequant_mm_plain = saved
+
+
+def online_block_p_f32(m, l, acc, scores, v, v_scale):
+    """``online_block`` with p left in f32 before the PV product (a control)."""
+    m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale
+    return m_new, l, acc * alpha + p @ v
+
+
+@contextlib.contextmanager
+def attention_control(name):
+    """Put a wrong rounding point into the attention plain versions."""
+    fd, fp = attention_modules()
+    saved = fd._prep_q, fp._prep_q, fd.online_block, fp.online_block
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    if name == "q_scale":
+        fd._prep_q = lambda q, sm: bf16(q.float()) * sm
+        fp._prep_q = lambda q: bf16(q.float() * q.shape[-1] ** -0.5) / q.shape[-1] ** -0.5
+    elif name == "p_f32":
+        fd.online_block = fp.online_block = online_block_p_f32
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        fd._prep_q, fp._prep_q, fd.online_block, fp.online_block = saved
 
 
 def phase_device():
@@ -212,6 +318,121 @@ def phase_kernels(device):
     return rows
 
 
+def kv_cache(gen, lead, dh, kv_dtype, device):
+    """Random K, V and their row scales: int8 values with scales in
+    [0.005, 0.02), or bf16 values with unit scales."""
+    shape = lead + (dh,)
+    if kv_dtype == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=device,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(lead, generator=gen, device=device) * 0.015 + 0.005
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                for _ in range(2))
+        ks, vs = torch.ones(lead, device=device), torch.ones(lead, device=device)
+    return [k, v, ks, vs]
+
+
+def poison_past(cache, last):
+    """Rows past ``last[b]`` (per sequence) get large values: a mask error
+    shows.  ``cache`` is (k, v, ks, vs) of a (B, H_kv, S, Dh) slab."""
+    k = cache[0]
+    rows = torch.arange(k.shape[2], device=k.device)
+    past = (rows[None, :] > last[:, None])[:, None, :, None]  # (B, 1, S, 1)
+    big = 127 if k.dtype == torch.int8 else 30000.0
+    for t in cache[:2]:
+        t.masked_fill_(past, big)
+
+
+def to_pool(cache, gen, page):
+    """The slab's rows as a pool of ``page``-row blocks behind a shuffled
+    block table (block 0 left as junk): (pool k, v, ks, vs, tables)."""
+    k = cache[0]
+    b, hkv, s_max = k.shape[:3]
+    per = s_max // page
+    tables = (torch.randperm(b * per, generator=gen, device=k.device) + 1).reshape(b, per)
+    pool = []
+    for t in cache:
+        blocks = t.reshape((b, hkv, per, page) + t.shape[3:]).transpose(1, 2)
+        p = torch.zeros((b * per + 1, hkv, page) + t.shape[3:], dtype=t.dtype, device=t.device)
+        p[tables.reshape(-1)] = blocks.reshape((b * per, hkv, page) + t.shape[3:])
+        pool.append(p)
+    return pool + [tables.to(torch.int32)]
+
+
+def live_controls(dh):
+    """The controls that move a rounding at this head_dim: where sm_scale =
+    dh**-0.5 is a power of two (dh 64), scaling commutes with the bf16
+    rounding of q and ``q_scale`` computes the same function."""
+    return tuple(c for c in ATTN_CONTROLS if c != "q_scale" or math.log2(dh) % 2)
+
+
+def attention_row(shape, kernel, plain, dh):
+    """Kernel against plain version (and the controls) on the same inputs."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    controls = {}
+    for c in live_controls(dh):
+        with attention_control(c):
+            controls[c] = rel_err(plain(), want)
+    return dict(shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
+                control=controls, ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10))
+
+
+def phase_attention(device):
+    """The flash kernels against their plain versions, with controls."""
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    fd, fp = attention_modules()
+    gen = torch.Generator(device).manual_seed(4321)
+    rows = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
+    for b, h, hkv, window, pos, kv_dtype, dh in DECODE_CASES:
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+        cache = kv_cache(gen, (b, hkv, S_MAX), dh, kv_dtype, device)
+        poison_past(cache, pos_t)
+        q = torch.randn((b, h, dh), generator=gen, device=device)
+        shape = f"B={b} H={h}/{hkv} W={window} {kv_dtype} Dh={dh}"
+
+        def slab(plain, cache=cache, q=q, pos_t=pos_t, window=window):
+            return fd.flash_decode_attention(q, *cache, pos_t, window=window, plain=plain)
+
+        rows["flash_decode"].append(
+            attention_row(shape, lambda: slab(False), lambda: slab(True), dh))
+        pool = to_pool(cache, gen, PAGE)
+
+        def paged(plain, pool=pool, q=q, pos_t=pos_t, window=window):
+            return fd.flash_decode_paged(q, *pool, pos_t, window=window, plain=plain)
+
+        rows["flash_decode_paged"].append(
+            attention_row(f"{shape} BS={PAGE}", lambda: paged(False), lambda: paged(True), dh))
+    for h, hkv, t, offsets, kv_dtype, dh in PREFILL_CASES:
+        b = len(offsets)
+        off = torch.tensor(offsets, dtype=torch.int32, device=device)
+        cache = kv_cache(gen, (b, hkv, S_MAX), dh, kv_dtype, device)
+        poison_past(cache, off + t - 1)
+        q = torch.randn((b, t, h, dh), generator=gen, device=device)
+        window = bucket_window(max(offsets) + t, S_MAX)
+
+        def pre(plain, cache=cache, q=q, off=off, window=window):
+            return fp.flash_prefill_attention(q, *cache, off, window=window, plain=plain)
+
+        rows["flash_prefill"].append(attention_row(
+            f"B={b} H={h}/{hkv} T={t} off={offsets} {kv_dtype} Dh={dh}",
+            lambda: pre(False), lambda: pre(True), dh))
+    for name, rs in rows.items():
+        tol = ATTN_TOL[name]
+        for r in rs:
+            ctl = " ".join(f"{c} {v:.3e}" for c, v in r["control"].items())
+            print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
+                  f"controls {ctl}) abs err {r['abs']:.3e}  kernel {r['ms']:.4f} ms  "
+                  f"plain {r['plain_ms']:.4f} ms")
+            check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            for c, v in r["control"].items():
+                check(v > tol, f"{name} {r['shape']}: tolerance passes the {c} control ({v})")
+    return rows
+
+
 def prefill(cfg, weights, prompts, plain):
     """Prefill last-position logits and the caches, as ``generate()``
     computes them (ragged layout, per-sequence positions)."""
@@ -262,16 +483,21 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_slice(device):
+def model(device):
+    """The Llama-2-7B-geometry model with random weights from seed 0."""
     from tpu_lutvq_torch.models.llama import LlamaConfig, init_llama
-    from tpu_lutvq_torch.runtime import generate
-
-    lg, dq = kernel_modules()
 
     cfg = LlamaConfig.llama2_7b()
     weights, secs = timed(lambda: init_llama(cfg, torch.Generator(device).manual_seed(0)))
-    print(f"[slice] Llama-2-7B geometry, {cfg.n_layers} layers, init {secs:.1f} s, "
+    print(f"[model] Llama-2-7B geometry, {cfg.n_layers} layers, init {secs:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return cfg, weights
+
+
+def phase_slice(device, cfg, weights):
+    from tpu_lutvq_torch.runtime import generate
+
+    lg, dq = kernel_modules()
     ids = torch.Generator().manual_seed(1)
 
     def prompt(n):
@@ -327,6 +553,158 @@ def phase_slice(device):
     return launches
 
 
+def step_errors(cfg, weights, caches, tok, pos):
+    """A B=8 flash decode step from ``caches`` through the kernels, against
+    the plain versions' step, and the ``REFERENCE_RUNS`` against it."""
+    from tpu_lutvq_torch.models.llama import llama_decode_step
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    window = bucket_window(int(pos.max()) + 1, cfg.max_seq)
+
+    def step(plain):
+        copy = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
+        return llama_decode_step(cfg, weights, tok, copy, pos, window=window, attn="flash",
+                                 plain=plain)[0]
+
+    want, got = step(True), step(False)
+    errs = {"kernel": rel_err(got, want)}
+    for name, variant in REFERENCE_RUNS.items():
+        with plain_versions(**variant):
+            errs[name] = rel_err(step(True), want)
+    for c in ATTN_CONTROLS:
+        with attention_control(c):
+            errs[f"attn_{c}"] = rel_err(step(True), want)
+    return errs, bool(torch.isfinite(got).all())
+
+
+def counters():
+    lg, dq = kernel_modules()
+    fd, fp = attention_modules()
+    return {"lut_gemv": (lg, "LUT_GEMV_LAUNCHES"), "dequant_mm": (dq, "DEQUANT_MM_LAUNCHES"),
+            "flash_decode": (fd, "FLASH_DECODE_LAUNCHES"),
+            "flash_decode_paged": (fd, "FLASH_DECODE_PAGED_LAUNCHES"),
+            "flash_prefill": (fp, "FLASH_PREFILL_LAUNCHES")}
+
+
+def serve(cfg, weights, prompts, run_kw=None, **kw):
+    """One batcher run from zeroed launch counters: (outputs by id, seconds,
+    launches by kernel, the batcher)."""
+    from tpu_lutvq_torch.runtime import ContinuousBatcher, Request
+
+    b = ContinuousBatcher(cfg, weights, n_slots=N_SLOTS, **kw)
+    for i, p in enumerate(prompts):
+        b.submit(Request(req_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    for mod, name in counters().values():
+        setattr(mod, name, 0)
+    done, secs = timed(lambda: b.run(**(run_kw or {})))
+    launches = {k: getattr(mod, name) for k, (mod, name) in counters().items()}
+    return {r.req_id: r.output for r in done}, secs, launches, b
+
+
+def batcher_prompts(cfg):
+    """Phase 4's prompts, and those of run (iii), from a seeded generator
+    (returned too: the B=8 step draws its tokens from it)."""
+    ids = torch.Generator().manual_seed(2)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=ids).tolist()
+
+    prompts = [prompt(n) for n in PROMPT_LENS]
+    long_prompts = [prompt(LONG_PROMPTS[i]) if i in LONG_PROMPTS else p
+                    for i, p in enumerate(prompts)]
+    return prompts, long_prompts, ids
+
+
+def phase_batcher(device, cfg, weights):
+    """Phase 4: the continuous batcher over slab and paged caches."""
+    prompts, long_prompts, ids = batcher_prompts(cfg)
+    serve(cfg, weights, prompts[:N_SLOTS])  # warm-up: lazy inits, allocator pools
+    runs = {
+        "i slab auto": (prompts, {}, {}),
+        "ii paged auto": (prompts, {}, PAGED),
+        "iii slab flash chunked": (long_prompts, dict(horizon=4, pipeline=True),
+                                   dict(attn="flash", prefill_chunk=PREFILL_CHUNK)),
+    }
+    must_launch = {"i slab auto": ("flash_decode", "dequant_mm"),
+                   "ii paged auto": ("flash_decode_paged", "dequant_mm"),
+                   "iii slab flash chunked": ("flash_decode", "flash_prefill", "dequant_mm")}
+    results = {}
+    for name, (ps, run_kw, kw) in runs.items():
+        outs, secs, launches, b = serve(cfg, weights, ps, run_kw, **kw)
+        results[name] = dict(outs=outs, secs=secs, launches=launches, batcher=b)
+        n_tok = sum(len(o) for o in outs.values())
+        print(f"[batcher] {name}: {len(outs)} requests, {n_tok} tokens in {secs:.2f} s, "
+              f"{n_tok / secs:.1f} tok/s delivered (host clock); waves admitted "
+              f"{b.wave_admits}; launches " + " ".join(f"{k} {v}" for k, v in launches.items()))
+        check(sorted(outs) == list(range(len(ps))), f"{name}: requests missing")
+        for i, o in outs.items():
+            check(len(o) == NEW_TOKENS, f"{name}: request {i} has {len(o)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in o), f"{name}: request {i} token ids")
+        for k in must_launch[name]:
+            check(launches[k] > 0, f"{name}: {k} did not launch")
+    same = results["ii paged auto"]["outs"] == results["i slab auto"]["outs"]
+    print(f"[batcher] paged run gives the slab run's tokens: {same}")
+    check(same, "the paged run's tokens differ from the slab run's")
+
+    b = results["i slab auto"]["batcher"]
+    # each slot's next step, as the batcher would feed it
+    pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
+    errs, finite = step_errors(cfg, weights, b.caches, tok, pos)
+    print(f"[batcher] B={N_SLOTS} flash decode step from run (i)'s caches, positions "
+          f"{pos.tolist()}: logits rel err vs plain: "
+          + ", ".join(f"{run} {e:.3e}" for run, e in errs.items()))
+    floor = max(e for run, e in errs.items() if run.startswith("floor"))
+    check(finite, "non-finite logits in the B=8 step")
+    check(errs["kernel"] <= LOGITS_TOL, f"B=8 step logits disagree: {errs}")
+    check(floor <= LOGITS_TOL, "B=8 step: plain-vs-plain noise over the tolerance")
+    check(errs["control"] > LOGITS_TOL, "B=8 step: tolerance passes the control")
+    # An attention fault must fail the step too.  The q_scale control (a
+    # 2^-9 relative change of q) reads at the plain-vs-plain noise here
+    # (1.678e-2 on the H100): only phase 2's per-kernel gates see it.
+    check(errs["attn_p_f32"] > LOGITS_TOL, "B=8 step: tolerance passes the p_f32 control")
+    return {name: r["launches"] for name, r in results.items()}
+
+
+def phase_profile(device, cfg, weights):
+    """``--profile``: where batcher run (i)'s time goes.  One run unprofiled
+    and one under torch.profiler (device busy share, kernel launches, device
+    time by kernel), then a B=8 decode step from its caches under each
+    attention path (host clock, 5 steps each, flash and einsum alternated)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_lutvq_torch.models.llama import llama_decode_step
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    prompts, _, ids = batcher_prompts(cfg)
+    serve(cfg, weights, prompts[:N_SLOTS])  # warm-up: lazy inits, allocator pools
+    secs = serve(cfg, weights, prompts)[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_secs, launches, b = serve(cfg, weights, prompts)
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    print(f"[profile] run (i): {secs:.3f} s unprofiled, {prof_secs:.3f} s profiled; device "
+          f"busy {100 * busy / prof_secs:.1f} % of the profiled wall time ({busy:.3f} s), "
+          f"{sum(e.count for e in on_device)} device launches; counters "
+          + " ".join(f"{k} {v}" for k, v in launches.items()))
+    on_device.sort(key=lambda e: -e.self_device_time_total)
+    for e in on_device[:10]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[profile]   {ms:10.1f} ms {100 * ms / 1e3 / busy:5.1f} % {e.count:7d} calls  "
+              f"{e.key[:100]}")
+
+    pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
+    window = bucket_window(int(pos.max()) + 1, cfg.max_seq)
+    step_ms = {"flash": [], "xla": []}
+    for attn in ("flash", "xla", "xla", "flash"):
+        step_ms[attn].append(1e3 / 5 * timed(lambda: [llama_decode_step(
+            cfg, weights, tok, b.caches, pos, window=window, attn=attn) for _ in range(5)])[1])
+    print(f"[profile] B={N_SLOTS} decode step at window {window}, ms per step: "
+          + ", ".join(f"{a} " + " / ".join(f"{t:.1f}" for t in ts) for a, ts in step_ms.items()))
+
+
 KERNELS = {
     "lut_gemv": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
@@ -338,20 +716,46 @@ KERNELS = {
         replaces="tpu_lutvq/kernels/dequant_mm.py:247",
         also_replaces=["tpu_lutvq/kernels/dequant_mm.py:311"],
     ),
+    "flash_decode": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/flash_decode.cu",
+        replaces="tpu_lutvq/kernels/flash_decode.py:168",
+        also_replaces=["tpu_lutvq/kernels/flash_decode.py:74"],
+    ),
+    "flash_decode_paged": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/flash_decode.cu",
+        replaces="tpu_lutvq/kernels/flash_decode.py:378",
+        also_replaces=["tpu_lutvq/kernels/flash_decode.py:306"],
+    ),
+    "flash_prefill": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/flash_prefill.cu",
+        replaces="tpu_lutvq/kernels/flash_prefill.py:122",
+        also_replaces=["tpu_lutvq/kernels/flash_prefill.py:45"],
+    ),
 }
+# the main-path run whose launch counts each kernel's summary reports
+LAUNCHES_FROM = {"flash_decode": "i slab auto", "flash_decode_paged": "ii paged auto",
+                 "flash_prefill": "iii slab flash chunked"}
 
 
-def main():
+def main(profile=False):
     import tpu_lutvq_torch  # noqa: F401  (fails at once outside the repository)
 
     phase_device()
     device = torch.device("cuda")
     phase_build()
+    if profile:
+        phase_profile(device, *model(device))
+        return
     rows = phase_kernels(device)
-    launches = phase_slice(device)
+    rows.update(phase_attention(device))
+    cfg, weights = model(device)
+    launches = phase_slice(device, cfg, weights)
+    batcher_launches = phase_batcher(device, cfg, weights)
+    for name, run in LAUNCHES_FROM.items():
+        launches[name] = batcher_launches[run][name]
     summary = []
     for name, meta in KERNELS.items():
-        at = next(r for r in rows[name] if r["shape"] == SUMMARY_AT[name])
+        at = next(r for r in rows[name] if r["shape"].startswith(SUMMARY_AT[name]))
         summary.append(dict(
             name=name, **meta, launches=launches[name],
             max_abs_err=max(r["abs"] for r in rows[name]),
@@ -368,4 +772,7 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    main()
+    if sys.argv[1:] not in ([], ["--profile"]):
+        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+        sys.exit(2)
+    main(profile=sys.argv[1:] == ["--profile"])

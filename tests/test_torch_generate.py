@@ -140,6 +140,9 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import tpu_lutvq_torch, tpu_lutvq_torch.kernels, tpu_lutvq_torch.models\n"
         "import tpu_lutvq_torch.runtime, tpu_lutvq_torch.utils\n"
+        "import tpu_lutvq_torch.kernels.flash_decode, tpu_lutvq_torch.kernels.flash_prefill\n"
+        "import tpu_lutvq_torch.models.paged_cache, tpu_lutvq_torch.models.attn_policy\n"
+        "import tpu_lutvq_torch.runtime.batching\n"
         "assert not any(m == 'tpu_lutvq' or m.startswith('tpu_lutvq.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -1,14 +1,15 @@
 """tpu-lutvq, PyTorch + CUDA port for NVIDIA Hopper.
 
 The JAX/Pallas package ``tpu_lutvq`` is the reference; this package serves
-the same AQLM-2x8 Llama ``generate()`` path with PyTorch around two
-hand-written CUDA kernels (``csrc/``).  It imports no jax.
+the same AQLM-2x8 Llama ``generate()`` and ``ContinuousBatcher`` paths with
+PyTorch around hand-written CUDA kernels (``csrc/``).  It imports no jax.
 
 - ``tpu_lutvq_torch.core``    — VQ<D,M,N,K> configs, params, golden model
-- ``tpu_lutvq_torch.kernels`` — LUT build, LUT-GEMV and dequant-matmul
-                                 wrappers, the nvcc build (``_build``)
+- ``tpu_lutvq_torch.kernels`` — LUT build, LUT-GEMV, dequant-matmul and flash
+                                 attention wrappers, the nvcc build (``_build``)
 - ``tpu_lutvq_torch.models``  — QuantizedLinear, Llama decoder, INT8 KV cache
-- ``tpu_lutvq_torch.runtime`` — ``generate()``
+                                 (slab and paged), attention policy
+- ``tpu_lutvq_torch.runtime`` — ``generate()``, chunked prefill, the batcher
 - ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package
 """
 

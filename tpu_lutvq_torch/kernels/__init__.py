@@ -1,5 +1,6 @@
-"""Projection kernels: LUT construction, the LUT-GEMV and dequant-matmul
-wrappers around the hand-written CUDA kernels in ``csrc/``."""
+"""Kernels: LUT construction, the LUT-GEMV and dequant-matmul projections
+and the flash attention kernels, wrappers around the hand-written CUDA
+kernels in ``csrc/``."""
 
 from tpu_lutvq_torch.kernels.lut_ctor import LANE, build_lut  # noqa: F401
 from tpu_lutvq_torch.kernels.lut_gemv import (  # noqa: F401
@@ -8,3 +9,8 @@ from tpu_lutvq_torch.kernels.lut_gemv import (  # noqa: F401
     pack_params,
 )
 from tpu_lutvq_torch.kernels.dequant_mm import dequant_matmul  # noqa: F401
+from tpu_lutvq_torch.kernels.flash_decode import (  # noqa: F401
+    flash_decode_attention,
+    flash_decode_paged,
+)
+from tpu_lutvq_torch.kernels.flash_prefill import flash_prefill_attention  # noqa: F401

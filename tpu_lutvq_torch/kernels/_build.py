@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The ``csrc/*.cu`` sources have a plain C interface.  On first use they are
-compiled with ``nvcc`` into one shared library for ``sm_90a`` and loaded
-with ``ctypes``.  The library's file name carries a hash of the sources and
-flags, so an unchanged tree reuses it and an edited one rebuilds.  It lives
+The ``csrc/*.cu`` sources have a plain C interface.  On first use each is
+compiled with its own ``nvcc`` for ``sm_90a``, all at once, and the objects
+are linked into one shared library loaded with ``ctypes``.  The library's
+file name carries a hash of the sources and flags, so an unchanged tree
+reuses it and an edited one rebuilds.  It lives
 under ``build/kernels/`` at the checkout root (listed in ``.gitignore``), or
 under ``$TPU_LUTVQ_TORCH_BUILD_DIR``.  Nothing here runs at import time, and
 a failed build raises: there is no fallback.
@@ -24,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -58,6 +59,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_lut_gemv.restype = i32
     lib.lutvq_dequant_mm.argtypes = [vp, vp, vp, vp, vp] + [i32] * 7 + [vp]
     lib.lutvq_dequant_mm.restype = i32
+    lib.lutvq_flash_decode.argtypes = [vp] * 8 + [i32] * 9 + [ctypes.c_float, vp]
+    lib.lutvq_flash_decode.restype = i32
+    lib.lutvq_flash_prefill.argtypes = [vp] * 7 + [i32] * 9 + [ctypes.c_float, vp]
+    lib.lutvq_flash_prefill.restype = i32
     lib.lutvq_error_string.argtypes = [i32]
     lib.lutvq_error_string.restype = ctypes.c_char_p
 
@@ -75,21 +80,37 @@ def library() -> ctypes.CDLL:
         digest.update(f.read_bytes())
     out = build_dir() / f"libtpu_lutvq_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{BUILD_LOG}"
-            )
+        objs = tmp.with_suffix(".objs")
+        objs.mkdir(parents=True, exist_ok=True)
+        try:
+            BUILD_LOG = _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{f.stem}.o"), str(f)]
+                for f in srcs
+            ])
+            BUILD_LOG += _run_all([
+                [nvcc, "-shared", "-o", str(tmp), *(str(objs / f"{f.stem}.o") for f in srcs)]
+            ])
+        finally:
+            shutil.rmtree(objs, ignore_errors=True)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     BUILD_SECONDS = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their output, or raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}: {' '.join(cmd)}\n{o}")
+    return "".join(outs)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

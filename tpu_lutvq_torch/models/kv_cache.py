@@ -102,3 +102,24 @@ def update_cache(
     cache.k_scale[bi, :, si] = k_s
     cache.v_scale[bi, :, si] = v_s
     return cache
+
+
+def write_cache_slots(big: KVCache, small: KVCache, slots) -> KVCache:
+    """Admission: copy a B=k cache (one wave's prefills) into slots
+    ``slots`` (k,) of a batched cache, in place.  Each slot is overwritten
+    whole: rows past the small cache's length are zeroed, scales included,
+    as the reference pads with zeros (``kv_cache.py:206-228``), not with the
+    unit scales ``KVCache.init`` starts from."""
+    slots = torch.as_tensor(slots, device=big.k_q.device).long()
+    t = small.k_q.shape[2]
+    if t > big.max_seq:
+        raise ValueError(f"{t} rows do not fit max_seq={big.max_seq}")
+    for dst, src in zip(big, small):
+        dst[slots, :, :t] = src.to(dst.dtype)
+        dst[slots, :, t:] = 0
+    return big
+
+
+def write_cache_slot(big: KVCache, small: KVCache, slot: int) -> KVCache:
+    """Admission: copy a B=1 cache into slot ``slot`` (``kv_cache.py:257-272``)."""
+    return write_cache_slots(big, small, [slot])

@@ -1,10 +1,11 @@
 """Llama-2 decoder with AQLM-quantized projections (counterpart of
-``tpu_lutvq.models.llama``, per-layer tuple-cache mode).
+``tpu_lutvq.models.llama``, per-layer tuple caches, slab or paged).
 
 RMSNorm, RoPE, GQA attention over the INT8 KV cache and a SwiGLU MLP, with
-every projection a ``QuantizedLinear``.  Attention is the einsum form of the
-JAX package's ``attn="xla"`` path: bf16 operands, f32 accumulation
-(computed as f32 products of bf16-rounded values).
+every projection a ``QuantizedLinear``.  Attention runs the flash kernels
+(``attn="flash"``), the einsum form of the JAX package's ``attn="xla"``
+path (bf16 operands, f32 accumulation, computed as f32 products of
+bf16-rounded values), or whichever ``resolve_attn`` picks (``"auto"``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from tpu_lutvq_torch.core.config import VQConfig, aqlm_2x8
+from tpu_lutvq_torch.kernels.flash_decode import flash_decode_attention, flash_decode_paged
+from tpu_lutvq_torch.kernels.flash_prefill import flash_prefill_attention
+from tpu_lutvq_torch.models.attn_policy import resolve_attn
 from tpu_lutvq_torch.models.kv_cache import KVCache, update_cache
+from tpu_lutvq_torch.models.paged_cache import PagedKVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear, make_quantized_linear
 
 
@@ -186,33 +191,66 @@ def _attention_window(
 
 def _attention(
     cfg: LlamaConfig,
-    q: torch.Tensor,
+    q: torch.Tensor,  # (B, T, H, Dh)
     cache: KVCache,
-    t_offset: torch.Tensor,
+    t_offset: torch.Tensor,  # (B,) int32: position of q[:, 0] per sequence
     window: Optional[int],
     attn: str,
+    plain: bool,
 ) -> torch.Tensor:
-    """Attention over a prefix ``window`` of the cache.  Only the einsum
-    path (``attn="xla"``, what ``generate()`` runs) is ported; the flash
-    kernels are not yet."""
-    if attn != "xla":
-        raise NotImplementedError(f"attn={attn!r} is not ported; use 'xla'")
+    """Attention over a prefix ``window`` of the slab cache: flash decode
+    (T=1) or flash prefill under ``attn="flash"``, the einsum path under
+    ``"xla"``; ``"auto"`` resolves as the reference does (``llama.py:224-278``)."""
+    b, t, nh, dh = q.shape
     if window is None:
         window = cache.max_seq
+    attn = resolve_attn(attn, batch=b, window=window, t=t, paged=False, heads=cfg.n_heads)
+    if attn == "flash":
+        args = (cache.k_q, cache.v_q, cache.k_scale, cache.v_scale, t_offset)
+        if t == 1:
+            out = flash_decode_attention(q[:, 0], *args, window=window, plain=plain)
+        else:
+            out = flash_prefill_attention(q, *args, window=window, plain=plain)
+        return out.reshape(b, t, nh * dh)
+    if attn != "xla":
+        raise ValueError(f"unknown attn {attn!r}")
     return _attention_window(cfg, q, cache, t_offset, window)
+
+
+def _paged_attention(
+    cfg: LlamaConfig,
+    q: torch.Tensor,  # (B, 1, H, Dh)
+    cache: PagedKVCache,
+    pos: torch.Tensor,  # (B,) int32
+    window: Optional[int],
+    attn: str,
+    plain: bool,
+) -> torch.Tensor:
+    """Decode attention over the pool: the paged flash kernel, or the
+    einsum path over a gathered slab view (``llama.py:332-358``)."""
+    b = q.shape[0]
+    w = window if window is not None else cache.max_seq
+    if resolve_attn(attn, batch=b, window=w, heads=cfg.n_heads, paged=True) == "flash":
+        out = flash_decode_paged(
+            q[:, 0], cache.k_pool, cache.v_pool, cache.k_scale, cache.v_scale,
+            cache.block_tables, pos, window=w, plain=plain,
+        )
+        return out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    view = cache.window_view(w)
+    return _attention_window(cfg, q, view, pos, min(w, view.max_seq))
 
 
 def _block(
     cfg: LlamaConfig,
     lw: LayerWeights,
     x: torch.Tensor,  # (B, T, hidden) f32
-    cache: KVCache,
-    pos: torch.Tensor,  # (B,) index of the first new token per sequence
+    cache,  # KVCache or PagedKVCache
+    pos: torch.Tensor,  # (B,) int32 index of the first new token per sequence
     kw: dict,
     window: Optional[int],
     attn: str,
     cache_pos,  # pos as update_cache takes it (int for one shared position)
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, object]:
     b, t, _ = x.shape
     vq_h, vq_f = cfg.vq_cfg(cfg.hidden), cfg.vq_cfg(cfg.ffn)
     vq_o = cfg.vq_cfg(cfg.q_dim)
@@ -223,8 +261,18 @@ def _block(
     tpos = pos[:, None] + torch.arange(t, device=x.device)[None, :]  # (B, T)
     q = rope(q, tpos, cfg.rope_theta)
     k = rope(k, tpos, cfg.rope_theta)
-    cache = update_cache(cache, k, v, cache_pos)
-    x = x + lw.wo.apply(vq_o, _attention(cfg, q, cache, pos, window, attn), **kw)
+    if isinstance(cache, PagedKVCache):
+        if t != 1:
+            raise ValueError(
+                "paged caches decode one token per step; prefill runs on a slab "
+                "cache and is copied in with PagedKVCache.write_slot(s)"
+            )
+        cache = cache.append(k, v, pos)
+        attn_out = _paged_attention(cfg, q, cache, pos, window, attn, kw["plain"])
+    else:
+        cache = update_cache(cache, k, v, cache_pos)
+        attn_out = _attention(cfg, q, cache, pos, window, attn, kw["plain"])
+    x = x + lw.wo.apply(vq_o, attn_out, **kw)
     xn = rms_norm(x, lw.mlp_norm, cfg.rms_eps)
     gate = lw.w_gate.apply(vq_h, xn, **kw)
     up = lw.w_up.apply(vq_h, xn, **kw)
@@ -236,7 +284,7 @@ def llama_forward(
     cfg: LlamaConfig,
     weights: LlamaWeights,
     tokens: torch.Tensor,  # (B, T) integer ids
-    caches: tuple[KVCache, ...],
+    caches: tuple,  # per-layer KVCache (slab) or PagedKVCache (pool)
     pos,  # int / 0-d tensor, or (B,) per-sequence positions
     *,
     strategy: str = "auto",
@@ -246,26 +294,30 @@ def llama_forward(
     logits_mode: str = "all",  # "all" | "last" | "index"
     logits_idx: Optional[torch.Tensor] = None,  # (B,), logits_mode="index"
     plain: bool = False,
-) -> tuple[torch.Tensor, tuple[KVCache, ...]]:
+) -> tuple[torch.Tensor, tuple]:
     """Forward pass over T new tokens at absolute position(s) ``pos``.
 
-    Per-layer tuple caches only (the JAX package's python-loop mode); the
-    caches are updated in place and returned.  ``window`` bounds the cache
-    prefix attention reads.  ``plain=True`` runs every projection through
-    the kernels' plain versions (a reference run on the card).
+    Per-layer tuple caches (the JAX package's python-loop mode), slab
+    ``KVCache`` or paged ``PagedKVCache`` (decode only, T=1); the caches are
+    updated in place and returned.  ``window`` bounds the cache prefix
+    attention reads; ``attn`` is "xla" (einsum), "flash" (the flash
+    kernels) or "auto" (``resolve_attn``).  ``plain=True`` runs every
+    kernel's plain version instead (a reference run on the card).
 
     Returns (logits (B, T', vocab) float32, caches), T' = T for
     ``logits_mode="all"`` and 1 otherwise.
     """
-    if isinstance(caches, KVCache):
-        raise NotImplementedError("stacked (scan/hybrid) caches are not ported")
+    if isinstance(caches, (KVCache, PagedKVCache)):
+        raise NotImplementedError(
+            "stacked (scan/hybrid) caches are not ported (ROADMAP Queue 1 item 8)"
+        )
     b = tokens.shape[0]
     device = weights.embed.device
     if isinstance(pos, int) or torch.as_tensor(pos).ndim == 0:
         cache_pos = int(pos)
-        pos_vec = torch.full((b,), cache_pos, dtype=torch.long, device=device)
+        pos_vec = torch.full((b,), cache_pos, dtype=torch.int32, device=device)
     else:
-        pos_vec = cache_pos = pos.to(device=device, dtype=torch.long)
+        pos_vec = cache_pos = pos.to(device=device, dtype=torch.int32)
     kw = dict(strategy=strategy, variant=variant, plain=plain)
     x = weights.embed[tokens.to(device).long()].float()
     new_caches = []

@@ -34,6 +34,44 @@ def bucket_window(n_valid: int, max_seq: int, min_bucket: int = MIN_BUCKET) -> i
     return min(w, max_seq)
 
 
+def make_chunked_prefill(
+    cfg: LlamaConfig,
+    *,
+    chunk: int = 1024,
+    strategy: str = "auto",
+    variant: str = "auto",
+    attn: str = "auto",
+    quality: str = "exact",
+):
+    """Chunked prefill (``generate.py:49-113``): a (B, T) prompt runs in
+    T-slices of ``chunk`` tokens, so activation transients scale with the
+    chunk; chunk ``[c0, c1)`` attends over window ``bucket_window(c1)`` at
+    offset ``c0`` (the flash-prefill kernel once ``attn`` resolves to it).
+
+    Returns ``prefill(weights, tokens, caches) -> (last_logits (B, vocab),
+    caches)``, the caches filled in place."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if quality != "exact":
+        raise NotImplementedError(
+            f"quality={quality!r} needs the W8A8 dequant kernel (ROADMAP Queue 2 G)"
+        )
+
+    def prefill(weights: LlamaWeights, tokens: torch.Tensor, caches):
+        t = tokens.shape[1]
+        logits = None
+        for c0 in range(0, t, chunk):
+            c1 = min(c0 + chunk, t)
+            logits, caches = llama_forward(
+                cfg, weights, tokens[:, c0:c1], caches, c0, strategy=strategy,
+                window=bucket_window(c1, cfg.max_seq), attn=attn, variant=variant,
+                logits_mode="last",
+            )
+        return logits[:, -1], caches
+
+    return prefill
+
+
 def pad_prompts(prompts, max_seq: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Ragged prompts right-padded with 0 to a power-of-two bucket (≥ 8,
     ≤ ``max_seq``): ``(B, bucket)`` int32 ids and ``(B,)`` int32 lengths."""

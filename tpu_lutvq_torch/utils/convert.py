@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ
+from tpu_lutvq_torch.models.kv_cache import KVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear
+from tpu_lutvq_torch.models.paged_cache import PagedKVCache
 from tpu_lutvq_torch.models.llama import LayerWeights, LlamaConfig, LlamaWeights
 
 _PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -67,4 +69,20 @@ def llama_from_numpy(cfg: LlamaConfig, tree, device="cpu") -> LlamaWeights:
         layers=layers,
         final_norm=tensor_from_numpy(tree.final_norm, device),
         lm_head=DenseLinear(tensor_from_numpy(tree.lm_head.w, device)),
+    )
+
+
+def kv_caches_from_numpy(caches, device="cpu") -> tuple[KVCache, ...]:
+    """The JAX package's per-layer slab caches (numpy leaves) → the port's."""
+    return tuple(
+        KVCache(*(tensor_from_numpy(getattr(c, f), device) for f in KVCache._fields))
+        for c in caches
+    )
+
+
+def paged_caches_from_numpy(caches, device="cpu") -> tuple[PagedKVCache, ...]:
+    """The JAX package's per-layer paged caches (numpy leaves) → the port's."""
+    return tuple(
+        PagedKVCache(*(tensor_from_numpy(getattr(c, f), device) for f in PagedKVCache._fields))
+        for c in caches
     )
