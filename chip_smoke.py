@@ -13,8 +13,15 @@ Phases, one result line each; any failure raises and exits non-zero:
      decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
      layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
      flash prefill at the chunked-admission and ragged-wave shapes, bf16 KV
-     once; both at head_dim 64 once.  Wrong-rounding controls must fail
-     each kernel's tolerance;
+     once; both at head_dim 64 once; the table lookups at each scan that
+     phase 5 gives them (8 queries over a million codes: bf16 tables at
+     PQ16 and at RQ's 4 codebooks, f32 at PQ16 and at the refine bounds' 8
+     subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
+     int8, int16) a 7B projection.  Wrong-rounding controls must fail each
+     kernel's tolerance (the int8 and int16 lookups must equal their plain
+     versions; truncating instead of rounding must not).  Each row
+     also times one PyTorch library call computing the same function and
+     states the least time the card could take (bytes or operations);
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
      serves (a) a ragged batch of 4 prompts for 32 new tokens and (b) one
      16-token prompt for 16 new tokens through ``generate()``; both kernels
@@ -29,7 +36,17 @@ Phases, one result line each; any failure raises and exits non-zero:
      ``run(horizon=4, pipeline=True)``.  Each run must launch its attention
      kernels, (ii) must give (i)'s tokens, and a B=8 flash decode step from
      (i)'s caches must match the plain versions' step as in phase 3, where
-     the attention controls must fail too.
+     the attention controls must fail too;
+  5. ann: FAISS's IndexPQ(128, 16, 8) on SIFT1M's size (benchs/
+     bench_polysemous_sift1m.py): a seeded Gaussian mixture, 1M base, 100k
+     training and 1,000 query vectors (SIFT1M has 10,000), PQ16 trained and
+     the base encoded on the card, top-100 searches in chunks of 128
+     queries: l2 with the default, int8 and int16 tables, refined from 8
+     subquantizers' bounds, ip; then RQ (4 codebooks) ip, SDC and a mixed
+     width PQ once each.  Each search prints queries/s, R@1/10/100 against
+     exact brute force on the raw base and its kernels' launches; the int8,
+     int16 and f32 table kernels must launch in theirs, and the refined
+     search must return the exact f32-table top-100.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -42,9 +59,11 @@ einsum attention.
 """
 
 import contextlib
+import functools
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +76,29 @@ import torch
 # the wrong rounding (LUT left in f32, codebook sum rounded to bf16) reads
 # ~1.5e-3, and phase 2 checks in every run that such a control fails.
 KERNEL_TOL = {"lut_gemv": 1e-5, "dequant_mm": 2e-4}
+# The table lookups: int8 and int16 sum integers exactly, so kernel and plain
+# version must be equal (0).  The f32 one sums f32 in another order than the
+# plain version; its limit, and the bf16-table control it must reject, are
+# set from the H100 readings in PERF.md.
+TABLE_TOL = {"lut_gemv": KERNEL_TOL["lut_gemv"], "lut_gemv_f32": 1e-5,
+             "lut_gemv_i8": 0.0, "lut_gemv_i16": 0.0}
+TABLE_VARIANTS = {"lut_gemv": "bpair", "lut_gemv_f32": "f32", "lut_gemv_i8": "i8",
+                  "lut_gemv_i16": "i16"}
+ANN_N = 1_000_000  # database codes of the scan rows and of phase 5
+# (B, G, K) of each scan row over ANN_N codes, and the lookups held to their
+# plain versions there: 8 queries' PQ16 tables (phase 5's searches (a)-(c),
+# (e), SDC, MixedPQ), their first 8 subquantizers (the bounds of (d)), RQ's
+# 4 codebooks, and a lone query at K=128
+TABLE_SCANS = {
+    (8, 16, 256): ("lut_gemv", "lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
+    (8, 8, 256): ("lut_gemv_f32",),
+    (8, 4, 256): ("lut_gemv",),
+    (1, 16, 128): ("lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
+}
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and operations/s
+# by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
 # max|logits - plain logits| / max|plain logits|, prefill and first step.
 # The random 7B model turns last-bit differences into int8-KV and bf16
 # rounding flips: the plain versions with reordered f32 sums read 0.87-2.0e-2
@@ -109,7 +151,23 @@ SUMMARY_AT = {
     "flash_decode": "B=8 H=32/32 W=2048 int8",
     "flash_decode_paged": "B=8 H=32/32 W=2048 int8",
     "flash_prefill": "B=1 H=32/32 T=256 off=(512,)",
+    "lut_gemv_f32": "scan B=8 G=8 K=256", "lut_gemv_i8": "scan B=8 G=16 K=256",
+    "lut_gemv_i16": "scan B=8 G=16 K=256",
 }
+# phase 5: FAISS benchs/bench_polysemous_sift1m.py, IndexPQ(128, 16, 8)
+ANN_D, ANN_M, ANN_K = 128, 16, 256
+ANN_NT, ANN_NQ, ANN_NQ_SIFT1M = 100_000, 1_000, 10_000
+# the Gaussian mixture standing in for SIFT: components, the dimension and
+# scale of their shared subspace, the isotropic noise
+ANN_CENTERS, ANN_LATENT, ANN_SPREAD, ANN_NOISE = 1024, 16, 1.0, 0.05
+ANN_TOPK, ANN_CHUNK = 100, 128  # results per query, queries per search call
+ANN_REFINE_GROUPS = 8
+# candidates rescored per refine round: the default (4·topk = 400) takes
+# ~700 rounds a chunk here, where bounds from 8 of 16 groups leave a
+# quarter of the base open (PERF.md)
+ANN_SHORTLIST = 16384
+ANN_MIXED_KS = (256, 128) * 8  # the mixed-width PQ's subquantizer sizes
+ANN_TIE_REL = 1e-5  # refined vs exact top-100: ties within this of the k-th value
 # phase 4: 16 requests, prompts cycling over 5-300 tokens, 24 new tokens each
 PROMPT_LENS = (5, 300, 41, 128, 9, 260, 77, 33, 190, 6, 150, 290, 12, 64, 230, 100)
 NEW_TOKENS = 24
@@ -158,6 +216,34 @@ def kernel_modules():
 
 def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, ops, kind):
+    """The least time the card could take for work that moves ``n_bytes``
+    (each input read once, each output written once) and does ``ops``
+    operations of ``kind``: (ms, "bytes" or "operations")."""
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_S, 1e3 * ops / PEAK_OPS_S[kind]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def with_bound(row, n_bytes, ops, kind):
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, kind)
+    return row
+
+
+def times(r):
+    return (f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def dense_bf16(cfg, packed):
+    """The layer's weight as the library call takes it: (d_out, d_in) bf16."""
+    _, dq = kernel_modules()
+    return dq.dequant_weight(cfg, packed).to(torch.bfloat16)
 
 
 # Stand-ins for the plain versions, same signatures.  ``parts`` > 1 splits
@@ -265,9 +351,18 @@ def phase_build():
 
     _build.library()
     print(f"[build] {_build.BUILD_SECONDS:.1f} s")
+    # one line per kernel: its name and template arguments as mangled,
+    # registers, shared memory and spills
+    name, spill = "?", ""
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]+(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            name = m.group(2)[:n] + re.sub(r"E(P|v).*$", "", m.group(2)[n:])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
 
 
 def phase_kernels(device):
@@ -284,36 +379,159 @@ def phase_kernels(device):
     for d_in, d_out in SHAPES:
         cfg = aqlm_2x8(d_in, shared_codebook=True)
         packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
+        w = dense_bf16(cfg, packed)
         for b in LUT_BATCHES:
             x = torch.randn((b, d_in), generator=gen, device=device)
             lut = build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16)
             args = (lut, packed.codes_t, packed.scales, packed.d_out)
             got, want = lg.lut_lookup(*args), lg.lut_lookup_plain(*args)
             torch.cuda.synchronize()
-            rows["lut_gemv"].append(dict(
+            xb = x.to(torch.bfloat16)
+            rows["lut_gemv"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} B={b}", rel=rel_err(got, want),
                 abs=float((got - want).abs().max()), control=rel_err(lut_control(*args), want),
                 ms=time_ms(lambda: lg.lut_lookup(*args)),
                 plain_ms=time_ms(lambda: lg.lut_lookup_plain(*args)),
-            ))
+                library_ms=time_ms(lambda: xb @ w.T),
+            ), nbytes(*args[:3], got), b * cfg.n_groups * d_out, "f32"))
         for r in DEQUANT_ROWS:
             x = torch.randn((r, d_in), generator=gen, device=device)
             got, want = dq.dequant_mm_bf16x2(cfg, packed, x), dq.dequant_mm_plain(cfg, packed, x)
             torch.cuda.synchronize()
-            rows["dequant_mm"].append(dict(
+            xb = x.to(torch.bfloat16)
+            rows["dequant_mm"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
                 abs=float((got - want).abs().max()),
                 control=rel_err(dq_control(cfg, packed, x), want),
                 ms=time_ms(lambda: dq.dequant_mm_bf16x2(cfg, packed, x), reps=10),
                 plain_ms=time_ms(lambda: dq.dequant_mm_plain(cfg, packed, x), reps=10),
-            ))
+                library_ms=time_ms(lambda: xb @ w.T, reps=10),
+            ), nbytes(x, packed.codes_t, packed.codebook, packed.scales, got),
+                2 * r * d_in * d_out, "bf16"))
     for name, rs in rows.items():
         tol = KERNEL_TOL[name]
         for r in rs:
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
-                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+                  + times(r))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
+    return rows
+
+
+@contextlib.contextmanager
+def truncating_quantizers():
+    """Put int8/int16 table quantizers that truncate instead of rounding half
+    to even in place of the lookup's (a control)."""
+    lg, _ = kernel_modules()
+    saved = lg.quantize_lut_int8, lg.quantize_lut_int16
+
+    def truncating(qmax, dtype):
+        def quantize(lut, axis=-1):
+            scale = lut.abs().amax(dim=axis, keepdim=True).clamp_min(1e-30) / qmax
+            return torch.trunc(lut / scale).clamp(-qmax, qmax).to(dtype), scale
+        return quantize
+
+    lg.quantize_lut_int8 = truncating(127.0, torch.int8)
+    lg.quantize_lut_int16 = truncating(32767.0, torch.int16)
+    try:
+        yield
+    finally:
+        lg.quantize_lut_int8, lg.quantize_lut_int16 = saved
+
+
+def table_row(shape, cfg, packed, lut, variant, library, wrapper=None):
+    """One table lookup through ``lut_gemv_packed`` against its plain
+    version, with the variant's control (truncating quantizers; f32 tables
+    rounded to bf16; bf16 tables left in f32).  ``ms``/``plain_ms`` time the
+    kernel's wrapper and its plain version on the prebuilt (quantized)
+    tables; ``wrapper``, a pair of calls (kernel path, plain path) such as
+    ``lut_gemv`` and its ``plain=True``, is checked and timed too."""
+    lg, _ = kernel_modules()
+    got = lg.lut_gemv_packed(cfg, packed, lut, variant=variant)
+    want = lg.lut_gemv_packed(cfg, packed, lut, variant=variant, plain=True)
+    torch.cuda.synchronize()
+    if variant in ("f32", "bpair"):
+        tab = lut
+        control_lut = lut.to(torch.bfloat16).float() if variant == "f32" else lut
+        control = lg.lut_gemv_packed(cfg, packed, control_lut, variant="f32", plain=True)
+    else:
+        quantize = lg.quantize_lut_int8 if variant == "i8" else lg.quantize_lut_int16
+        tab = quantize(lut, axis=(1, 2))[0]
+        with truncating_quantizers():
+            control = lg.lut_gemv_packed(cfg, packed, lut, variant=variant, plain=True)
+    kernel, plain = {
+        "bpair": (lg.lut_lookup, lg.lut_lookup_plain),
+        "f32": (lg.lut_lookup_table, functools.partial(lg.lut_lookup_plain, round_bf16=False)),
+    }.get(variant, (lg.lut_lookup_table, lg.lut_lookup_int_plain))
+    args = (tab, packed.codes_t, packed.scales, packed.d_out)
+    row = dict(shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
+               control=rel_err(control, want), ms=time_ms(lambda: kernel(*args)),
+               plain_ms=time_ms(lambda: plain(*args), reps=5), library_ms=time_ms(library))
+    if wrapper is not None:
+        kernel_path, plain_path = wrapper
+        y, y_plain = kernel_path(), plain_path()
+        torch.cuda.synchronize()
+        row["wrapper_rel"] = rel_err(y, y_plain)
+        row["wrapper_ms"] = time_ms(kernel_path)
+    b, g, _ = lut.shape
+    return with_bound(row, nbytes(*args[:3], got), b * g * packed.d_out, "f32")
+
+
+def phase_tables(device):
+    """The table lookups against their plain versions at the scans of
+    phase 5 (``TABLE_SCANS``: 8 queries' tables over a million codes at
+    each group count a search gives a kernel, a lone query at K=128), and
+    the f32, int8 and int16 ones at a Llama-2-7B projection through
+    ``lut_gemv`` at one and eight tokens (the bf16 one's projection rows
+    are phase_kernels')."""
+    from tpu_lutvq_torch import VQConfig, VQParams, aqlm_2x8, init_vq_params
+    from tpu_lutvq_torch.kernels.lut_ctor import build_lut
+
+    lg, _ = kernel_modules()
+    gen = torch.Generator(device).manual_seed(99)
+    rows = {name: [] for name in TABLE_VARIANTS}
+    for (b, g, k), names in TABLE_SCANS.items():
+        cfg = VQConfig(8 * g, g, 1, k)
+        codes = torch.randint(0, k, (ANN_N, g, 1), generator=gen, device=device,
+                              dtype=torch.int32).to(torch.uint8)
+        packed = lg.pack_params(cfg, VQParams(torch.zeros((1, 1, 1, 1), device=device), codes))
+        lut = 100 * torch.rand((b, g, k), generator=gen, device=device)  # L2-like tables
+        # the library call: the queries against a decoded (n, d) bf16 base
+        base = torch.randn((ANN_N, cfg.d_in), generator=gen, device=device).to(torch.bfloat16)
+        qb = torch.randn((b, cfg.d_in), generator=gen, device=device).to(torch.bfloat16)
+        for name in names:
+            rows[name].append(table_row(f"scan B={b} G={g} K={k} n={ANN_N}", cfg, packed, lut,
+                                        TABLE_VARIANTS[name], lambda: qb @ base.T))
+        del codes, packed, base
+    cfg = aqlm_2x8(4096, shared_codebook=True)
+    packed = lg.pack_params(cfg, init_vq_params(gen, cfg, 4096, with_scales=True))
+    w = dense_bf16(cfg, packed)
+    for b in (1, 8):
+        x = torch.randn((b, 4096), generator=gen, device=device)
+        xb = x.to(torch.bfloat16)
+        for name, v in TABLE_VARIANTS.items():
+            if v == "bpair":
+                continue
+            cdt = torch.float32 if v in ("f32", "i16") else torch.bfloat16
+            lut = build_lut(cfg, packed.codebook, x, compute_dtype=cdt)
+            wrapper = (lambda v=v, x=x: lg.lut_gemv(cfg, packed, x, variant=v),
+                       lambda v=v, x=x: lg.lut_gemv(cfg, packed, x, variant=v, plain=True))
+            rows[name].append(table_row(f"4096x4096 aqlm_2x8 B={b}", cfg, packed, lut, v,
+                                        lambda: xb @ w.T, wrapper))
+    for name, rs in rows.items():
+        tol = TABLE_TOL[name]
+        for r in rs:
+            extra = ""
+            if "wrapper_rel" in r:
+                extra = (f"  lut_gemv(variant={TABLE_VARIANTS[name]!r}) rel err "
+                         f"{r['wrapper_rel']:.3e}, {r['wrapper_ms']:.4f} ms")
+            print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
+                  f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
+                  + times(r) + extra)
+            check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r.get("wrapper_rel", 0.0) <= tol,
+                  f"{name} {r['shape']}: lut_gemv disagrees with plain: {r.get('wrapper_rel')}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
     return rows
 
@@ -368,16 +586,44 @@ def live_controls(dh):
     return tuple(c for c in ATTN_CONTROLS if c != "q_scale" or math.log2(dh) % 2)
 
 
-def attention_row(shape, kernel, plain, dh):
-    """Kernel against plain version (and the controls) on the same inputs."""
+def attention_row(shape, kernel, plain, dh, library, work):
+    """Kernel against plain version (and the controls) on the same inputs;
+    ``library`` is the SDPA call on dequantized K/V, ``work`` the (bytes,
+    operations) the attention needs."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     controls = {}
     for c in live_controls(dh):
         with attention_control(c):
             controls[c] = rel_err(plain(), want)
-    return dict(shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
-                control=controls, ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10))
+    return with_bound(dict(
+        shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
+        control=controls, ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10),
+        library_ms=time_ms(library)), *work, "bf16")
+
+
+def dequant_kv(cache, rows, rep):
+    """The cache's first ``rows`` rows as bf16 K and V, each kv head
+    repeated for its ``rep`` query heads: (B, H, rows, Dh) each."""
+    return [(t[:, :, :rows].float() * s[:, :, :rows, None]).to(torch.bfloat16)
+            .repeat_interleave(rep, dim=1) for t, s in ((cache[0], cache[2]), (cache[1], cache[3]))]
+
+
+def sdpa(q, k, v, mask):
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def attention_work(q, cache, rows, queries, out, extra=0):
+    """(bytes, operations) of attention over ``rows[b]`` cache rows per
+    sequence and ``queries[b]`` score rows (Σ over a sequence's queries of
+    the rows each attends): K, V and their scales read once, q and the
+    output once, two multiply-adds per (query, row, head, dim)."""
+    k = cache[0]
+    hkv, dh = k.shape[1], k.shape[3]
+    h = q.shape[-2]
+    row_bytes = 2 * hkv * (dh * k.element_size() + 4)
+    return (row_bytes * int(rows.sum()) + nbytes(q, out) + extra,
+            4 * h * dh * int(queries.sum()))
 
 
 def phase_attention(device):
@@ -397,15 +643,23 @@ def phase_attention(device):
         def slab(plain, cache=cache, q=q, pos_t=pos_t, window=window):
             return fd.flash_decode_attention(q, *cache, pos_t, window=window, plain=plain)
 
+        k, v = dequant_kv(cache, window, h // hkv)
+        mask = (torch.arange(window, device=device)[None, :] <= pos_t[:, None])[:, None, None]
+        library = sdpa(q[:, :, None].to(torch.bfloat16), k, v, mask)
+        n_rows = pos_t.long() + 1
+        work = attention_work(q, cache, n_rows, n_rows, q)
         rows["flash_decode"].append(
-            attention_row(shape, lambda: slab(False), lambda: slab(True), dh))
+            attention_row(shape, lambda: slab(False), lambda: slab(True), dh, library, work))
         pool = to_pool(cache, gen, PAGE)
 
         def paged(plain, pool=pool, q=q, pos_t=pos_t, window=window):
             return fd.flash_decode_paged(q, *pool, pos_t, window=window, plain=plain)
 
-        rows["flash_decode_paged"].append(
-            attention_row(f"{shape} BS={PAGE}", lambda: paged(False), lambda: paged(True), dh))
+        tables = 4 * int((-(-n_rows // PAGE)).sum())  # the block-table entries read
+        rows["flash_decode_paged"].append(attention_row(
+            f"{shape} BS={PAGE}", lambda: paged(False), lambda: paged(True), dh, library,
+            attention_work(q, cache, n_rows, n_rows, q, extra=tables)))
+        del k, v
     for h, hkv, t, offsets, kv_dtype, dh in PREFILL_CASES:
         b = len(offsets)
         off = torch.tensor(offsets, dtype=torch.int32, device=device)
@@ -417,16 +671,22 @@ def phase_attention(device):
         def pre(plain, cache=cache, q=q, off=off, window=window):
             return fp.flash_prefill_attention(q, *cache, off, window=window, plain=plain)
 
+        k, v = dequant_kv(cache, window, h // hkv)
+        causal = off[:, None] + torch.arange(t, device=device)[None, :]  # (B, T) last row
+        mask = (torch.arange(window, device=device)[None, None, :] <= causal[..., None])[:, None]
+        library = sdpa(q.transpose(1, 2).to(torch.bfloat16), k, v, mask)
+        attended = t * off.long() + t * (t + 1) // 2  # Σ_t (off + t + 1) per sequence
         rows["flash_prefill"].append(attention_row(
             f"B={b} H={h}/{hkv} T={t} off={offsets} {kv_dtype} Dh={dh}",
-            lambda: pre(False), lambda: pre(True), dh))
+            lambda: pre(False), lambda: pre(True), dh, library,
+            attention_work(q, cache, off.long() + t, attended, q)))
+        del k, v
     for name, rs in rows.items():
         tol = ATTN_TOL[name]
         for r in rs:
             ctl = " ".join(f"{c} {v:.3e}" for c, v in r["control"].items())
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
-                  f"controls {ctl}) abs err {r['abs']:.3e}  kernel {r['ms']:.4f} ms  "
-                  f"plain {r['plain_ms']:.4f} ms")
+                  f"controls {ctl}) abs err {r['abs']:.3e}  " + times(r))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             for c, v in r["control"].items():
                 check(v > tol, f"{name} {r['shape']}: tolerance passes the {c} control ({v})")
@@ -583,7 +843,10 @@ def counters():
     return {"lut_gemv": (lg, "LUT_GEMV_LAUNCHES"), "dequant_mm": (dq, "DEQUANT_MM_LAUNCHES"),
             "flash_decode": (fd, "FLASH_DECODE_LAUNCHES"),
             "flash_decode_paged": (fd, "FLASH_DECODE_PAGED_LAUNCHES"),
-            "flash_prefill": (fp, "FLASH_PREFILL_LAUNCHES")}
+            "flash_prefill": (fp, "FLASH_PREFILL_LAUNCHES"),
+            "lut_gemv_f32": (lg, "LUT_GEMV_F32_LAUNCHES"),
+            "lut_gemv_i8": (lg, "LUT_GEMV_I8_LAUNCHES"),
+            "lut_gemv_i16": (lg, "LUT_GEMV_I16_LAUNCHES")}
 
 
 def serve(cfg, weights, prompts, run_kw=None, **kw):
@@ -705,6 +968,178 @@ def phase_profile(device, cfg, weights):
           + ", ".join(f"{a} " + " / ".join(f"{t:.1f}" for t in ts) for a, ts in step_ms.items()))
 
 
+def ann_data(device):
+    """Phase 5's base, training set and queries from a seeded generator on
+    the card: a mixture of ``ANN_CENTERS`` Gaussian components in d=128,
+    each spread over a shared ``ANN_LATENT``-dimensional subspace (with a
+    little isotropic noise), so that the data's intrinsic dimension is low,
+    as SIFT's is, and nearest neighbours stand out."""
+    gen = torch.Generator(device).manual_seed(0)
+    centers = torch.randn((ANN_CENTERS, ANN_D), generator=gen, device=device)
+    basis = torch.randn((ANN_LATENT, ANN_D), generator=gen, device=device) / ANN_LATENT ** 0.5
+
+    def draw(n):
+        a = torch.randint(0, ANN_CENTERS, (n,), generator=gen, device=device)
+        z = torch.randn((n, ANN_LATENT), generator=gen, device=device)
+        eps = torch.randn((n, ANN_D), generator=gen, device=device)
+        return centers[a] + ANN_SPREAD * (z @ basis) + ANN_NOISE * eps
+
+    return draw(ANN_N), draw(ANN_NT), draw(ANN_NQ), gen
+
+
+def exact_topk(base, queries, metric, k=ANN_TOPK):
+    """Brute force on the raw base (f32 matmul, 128 queries at a time): the
+    indices of the k nearest (l2) or highest inner products (ip)."""
+    b2 = (base * base).sum(dim=1)
+    out = []
+    for q0 in range(0, queries.shape[0], ANN_CHUNK):
+        dots = queries[q0 : q0 + ANN_CHUNK] @ base.T
+        if metric == "l2":
+            out.append(torch.topk(b2[None] - 2 * dots, k, dim=1, largest=False).indices)
+        else:
+            out.append(torch.topk(dots, k, dim=1).indices)
+    return torch.cat(out)
+
+
+def recall(idx, truth):
+    """R@r for r in 1, 10, 100: the share of queries whose true nearest
+    neighbour is among the first r results (FAISS's 1-recall@r)."""
+    hit = idx == truth[:, :1]
+    return {r: float(hit[:, :r].any(dim=1).float().mean()) for r in (1, 10, 100)}
+
+
+def adc_scores(pq, queries, codes):
+    """Exact ADC distances from the f32 tables, summed in subquantizer order."""
+    tables = pq.l2_tables(queries)
+    codes = codes.long()
+    scores = tables[:, 0, codes[:, 0]]
+    for m in range(1, pq.m):
+        scores = scores + tables[:, m, codes[:, m]]
+    return scores
+
+
+def same_topk(vals, idx, scores, rel=ANN_TIE_REL):
+    """Whether (vals, idx), sorted ascending, are the exact top-k of
+    ``scores``: each value within ``rel`` of the exact one at its rank and of
+    its own index's score, and an index in only one of the two results tied
+    within ``rel`` with the k-th value."""
+    ref_v, ref_i = torch.topk(scores, vals.shape[1], dim=1, largest=False)
+    tol = rel * ref_v[:, -1:].abs()
+    ok = bool(((vals - ref_v).abs() <= tol).all())
+    ok &= bool(((scores.gather(1, idx) - vals).abs() <= tol).all())
+    only_got = ~(idx[:, :, None] == ref_i[:, None, :]).any(dim=2)
+    only_ref = ~(ref_i[:, :, None] == idx[:, None, :]).any(dim=2)
+    for i, only in ((idx, only_got), (ref_i, only_ref)):
+        off = (scores.gather(1, i) - ref_v[:, -1:]).abs() > tol
+        ok &= not bool((only & off).any())
+    return ok, int(only_got.sum())
+
+
+def ann_search(name, search, queries, truth, metric, must_launch, check_chunk=None):
+    """One search over all queries in chunks of ``ANN_CHUNK``, from zeroed
+    launch counters: timed (host clock, synchronised), checked well formed,
+    its recall printed.  ``check_chunk(q0, vals, idx)`` runs after the timing."""
+    lookups = {k: v for k, v in counters().items() if k.startswith("lut_gemv")}
+    for mod, attr in lookups.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    chunks = range(0, queries.shape[0], ANN_CHUNK)
+    res, secs = timed(lambda: [search(queries[q0 : q0 + ANN_CHUNK]) for q0 in chunks])
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in lookups.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vals, idx = torch.cat([v for v, _ in res]), torch.cat([i for _, i in res])
+    nq = queries.shape[0]
+    check(vals.shape == idx.shape == (nq, ANN_TOPK), f"{name}: result shape {tuple(idx.shape)}")
+    check(bool(torch.isfinite(vals).all()), f"{name}: non-finite values")
+    check(bool(((idx >= 0) & (idx < ANN_N)).all()), f"{name}: indices out of range")
+    step = vals[:, 1:] - vals[:, :-1]
+    check(bool((step >= 0).all() if metric == "l2" else (step <= 0).all()),
+          f"{name}: results not sorted")
+    check(all(launches[k] > 0 for k in must_launch), f"{name}: {must_launch} did not launch")
+    extra = ""
+    if check_chunk is not None:
+        extra = check_chunk([(q0, v, i) for q0, (v, i) in zip(chunks, res)])
+    r = recall(idx, truth)
+    print(f"[ann] {name}: {nq / secs:.1f} queries/s ({secs:.3f} s, host clock); R@1 {r[1]:.4f} "
+          f"R@10 {r[10]:.4f} R@100 {r[100]:.4f}; launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak device memory {peak:.2f} GiB{extra}")
+    return dict(launches=launches, recall=r, qps=nq / secs)
+
+
+def phase_ann(device):
+    """Phase 5: FAISS's IndexPQ(128, 16, 8) at SIFT1M's size on the card."""
+    from tpu_lutvq_torch.ann import ProductQuantizer, ResidualQuantizer
+    from tpu_lutvq_torch.ann.pq import MixedPQ, sdc_search
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls would break the refine bounds")
+    (base, train, queries, gen), secs = timed(lambda: ann_data(device))
+    print(f"[ann] data: Gaussian mixture of {ANN_CENTERS} components over a "
+          f"{ANN_LATENT}-dimensional subspace, d={ANN_D}, base "
+          f"{ANN_N}, train {ANN_NT}, queries {ANN_NQ} (cut from SIFT1M's {ANN_NQ_SIFT1M}), "
+          f"{secs:.2f} s")
+    truth = {m: exact_topk(base, queries, m) for m in ("l2", "ip")}
+    pq, secs = timed(lambda: ProductQuantizer(ANN_D, ANN_M, ANN_K).train(gen, train))
+    codes, enc_secs = timed(lambda: pq.encode(base))
+    mse = float(((pq.decode(codes[:ANN_NT]) - base[:ANN_NT]) ** 2).sum(dim=1).mean())
+    print(f"[ann] PQ{ANN_M}x{ANN_K.bit_length() - 1}: trained in {secs:.2f} s (25 iterations, "
+          f"init 'sample'), base encoded in {enc_secs:.2f} s, codes {tuple(codes.shape)} "
+          f"{codes.dtype}; reconstruction error {mse:.4f} per vector")
+
+    results = {}
+    for name, kw, must in (
+        ("(a) l2 f32 tables", dict(), ("lut_gemv",)),
+        ("(b) l2 int8 tables", dict(table_dtype="int8"), ("lut_gemv_i8",)),
+        ("(c) l2 int16 tables", dict(table_dtype="int16"), ("lut_gemv_i16",)),
+    ):
+        results[name] = ann_search(
+            name, lambda q, kw=kw: pq.search(q, codes, topk=ANN_TOPK, **kw), queries,
+            truth["l2"], "l2", must)
+
+    stats = []
+
+    def refined(q):
+        s = {}
+        out = pq.search(q, codes, topk=ANN_TOPK, refine_groups=ANN_REFINE_GROUPS,
+                        shortlist=ANN_SHORTLIST, stats=s)
+        stats.append(s["scored_frac"])
+        return out
+
+    def exact_check(chunks):
+        agree, moved = True, 0
+        for q0, v, i in chunks:
+            ok, n = same_topk(v, i, adc_scores(pq, queries[q0 : q0 + ANN_CHUNK], codes))
+            agree, moved = agree and ok, moved + n
+        check(agree, "(d): the refined search is not the exact f32 ADC top-100")
+        return (f"; the exact f32 ADC top-{ANN_TOPK}: {agree} ({moved} indices differ by "
+                f"ties within {ANN_TIE_REL:g}); scored_frac {min(stats):.5f}-{max(stats):.5f}")
+
+    results["(d) l2 refined"] = ann_search(
+        f"(d) l2 refined from {ANN_REFINE_GROUPS} groups, shortlist {ANN_SHORTLIST}", refined, queries, truth["l2"], "l2",
+        ("lut_gemv_f32",), exact_check)
+    results["(e) ip f32 tables"] = ann_search(
+        "(e) ip f32 tables", lambda q: pq.search(q, codes, topk=ANN_TOPK, metric="ip"),
+        queries, truth["ip"], "ip", ("lut_gemv",))
+
+    rq, secs = timed(lambda: ResidualQuantizer(ANN_D, 4, ANN_K).train(gen, train))
+    rq_codes = rq.encode(base)
+    print(f"[ann] RQ 4x{ANN_K}: trained in {secs:.2f} s, base encoded")
+    ann_search("RQ4 ip", lambda q: rq.search(q, rq_codes, topk=ANN_TOPK), queries,
+               truth["ip"], "ip", ("lut_gemv",))
+    ann_search("SDC l2", lambda q: sdc_search(pq, pq.encode(q), codes, topk=ANN_TOPK),
+               queries, truth["l2"], "l2", ("lut_gemv",))
+    mpq, secs = timed(lambda: MixedPQ(ANN_D, ANN_MIXED_KS).train(gen, train))
+    mpq_codes = mpq.encode(base)
+    print(f"[ann] MixedPQ ks {ANN_MIXED_KS[:2]}x{len(ANN_MIXED_KS) // 2}: trained in "
+          f"{secs:.2f} s, base encoded")
+    ann_search("MixedPQ l2", lambda q: mpq.search(q, mpq_codes, topk=ANN_TOPK), queries,
+               truth["l2"], "l2", ("lut_gemv",))
+    return {"lut_gemv_i8": results["(b) l2 int8 tables"]["launches"]["lut_gemv_i8"],
+            "lut_gemv_i16": results["(c) l2 int16 tables"]["launches"]["lut_gemv_i16"],
+            "lut_gemv_f32": results["(d) l2 refined"]["launches"]["lut_gemv_f32"]}
+
+
 KERNELS = {
     "lut_gemv": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
@@ -731,6 +1166,18 @@ KERNELS = {
         replaces="tpu_lutvq/kernels/flash_prefill.py:122",
         also_replaces=["tpu_lutvq/kernels/flash_prefill.py:45"],
     ),
+    "lut_gemv_f32": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:586",
+    ),
+    "lut_gemv_i8": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:487",
+    ),
+    "lut_gemv_i16": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:541",
+    ),
 }
 # the main-path run whose launch counts each kernel's summary reports
 LAUNCHES_FROM = {"flash_decode": "i slab auto", "flash_decode_paged": "ii paged auto",
@@ -748,18 +1195,24 @@ def main(profile=False):
         return
     rows = phase_kernels(device)
     rows.update(phase_attention(device))
+    for name, rs in phase_tables(device).items():
+        rows.setdefault(name, []).extend(rs)
     cfg, weights = model(device)
     launches = phase_slice(device, cfg, weights)
     batcher_launches = phase_batcher(device, cfg, weights)
     for name, run in LAUNCHES_FROM.items():
         launches[name] = batcher_launches[run][name]
+    del weights
+    torch.cuda.empty_cache()
+    launches.update(phase_ann(device))
     summary = []
     for name, meta in KERNELS.items():
         at = next(r for r in rows[name] if r["shape"].startswith(SUMMARY_AT[name]))
         summary.append(dict(
             name=name, **meta, launches=launches[name],
             max_abs_err=max(r["abs"] for r in rows[name]),
-            ms=at["ms"], plain_ms=at["plain_ms"], at=at["shape"],
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], library_ms=at["library_ms"], at=at["shape"],
         ))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

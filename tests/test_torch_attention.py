@@ -56,7 +56,7 @@ def kv_arrays(rng, lead, dh, int8=True):
 
 
 def both(arrays):
-    return [jnp.asarray(a) for a in arrays], [tensor_from_numpy(a) for a in arrays]
+    return [jnp.asarray(a) for a in arrays], [tensor_from_numpy(a, "cpu") for a in arrays]
 
 
 def einsum_ref(q_np, kv, pos_np, window):
@@ -65,7 +65,7 @@ def einsum_ref(q_np, kv, pos_np, window):
     b, t, h, dh = q.shape
     hkv = kv[0].shape[1]
     cfg = tl.LlamaConfig.tiny(n_heads=h, n_kv_heads=hkv, hidden=h * dh, max_seq=kv[0].shape[2])
-    cache = TKVCache(*(tensor_from_numpy(a) for a in kv))
+    cache = TKVCache(*(tensor_from_numpy(a, "cpu") for a in kv))
     out = tl._attention_window(cfg, q, cache, torch.from_numpy(pos_np), window)
     return out.reshape(b, t, h, dh).numpy()
 

@@ -38,7 +38,7 @@ def carried(max_seq):
     kw = dict(n_layers=1, max_seq=max_seq)
     jcfg, tcfg = jl.LlamaConfig.tiny(**kw), tl.LlamaConfig.tiny(**kw)
     jw = jl.init_llama(jax.random.PRNGKey(7), jcfg, dtype=jnp.float32)
-    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw))
+    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -157,10 +157,10 @@ def test_chunked_prefill_matches_oneshot_and_jax(tiny32, attn):
     tokens = np.array(jax.random.randint(jax.random.PRNGKey(3), (b, t), 0, jcfg.vocab_size),
                       np.int32)
     logits_1, caches_1 = tl.llama_forward(tcfg, tw, torch.from_numpy(tokens),
-                                          tl.init_caches(tcfg, b), 0, logits_mode="last",
+                                          tl.init_caches(tcfg, b, device="cpu"), 0, logits_mode="last",
                                           strategy=STRATEGY, attn=attn)
     chunked = make_chunked_prefill(tcfg, chunk=4, strategy=STRATEGY, attn=attn)
-    logits_c, caches_c = chunked(tw, torch.from_numpy(tokens), tl.init_caches(tcfg, b))
+    logits_c, caches_c = chunked(tw, torch.from_numpy(tokens), tl.init_caches(tcfg, b, device="cpu"))
     assert logits_c.shape == (b, tcfg.vocab_size)
     # the chunks' projections see 4 rows instead of 13: f32 sums in another
     # order, so the JAX test's 1e-5 for the logits; the int8 KV rows are

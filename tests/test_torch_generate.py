@@ -34,7 +34,7 @@ def tiny():
     jcfg = jl.LlamaConfig.tiny(**KW)
     jw = jl.init_llama(jax.random.PRNGKey(7), jcfg)
     tcfg = tl.LlamaConfig.tiny(**KW)
-    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw))
+    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw), device="cpu")
 
 
 def both(tiny, prompt, strategy, **kw):
@@ -143,6 +143,8 @@ def test_port_imports_without_jax():
         "import tpu_lutvq_torch.kernels.flash_decode, tpu_lutvq_torch.kernels.flash_prefill\n"
         "import tpu_lutvq_torch.models.paged_cache, tpu_lutvq_torch.models.attn_policy\n"
         "import tpu_lutvq_torch.runtime.batching\n"
+        "import tpu_lutvq_torch.ann, tpu_lutvq_torch.ann.kmeans, tpu_lutvq_torch.ann.pq\n"
+        "import tpu_lutvq_torch.ann.opq, tpu_lutvq_torch.utils.convert\n"
         "assert not any(m == 'tpu_lutvq' or m.startswith('tpu_lutvq.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -28,6 +28,7 @@ from tpu_lutvq_torch.kernels import _build
 from tpu_lutvq_torch.kernels import dequant_mm as tdq
 from tpu_lutvq_torch.kernels import lut_ctor as tctor
 from tpu_lutvq_torch.models import kv_cache as tkv
+from tpu_lutvq_torch.models import linear as tlin
 from tpu_lutvq_torch.utils.convert import packed_from_numpy
 
 # the packages' ``kernels`` re-export the function ``lut_gemv`` over its module
@@ -140,7 +141,7 @@ def test_pack_params_layout_equal(d_in, d_out, shared, zeros):
     if zeros:
         assert np.array_equal(tpk.zero_points.numpy(), np.asarray(jpk.zero_points))
     assert tpk.d_out == jpk.d_out
-    carried = packed_from_numpy(jpk)
+    carried = packed_from_numpy(jpk, "cpu")
     assert torch.equal(carried.codes_t, tpk.codes_t)
     assert torch.equal(carried.codebook, tpk.codebook)
 
@@ -198,6 +199,72 @@ def test_lut_gemv_f32_variant_and_zero_points_match():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+# ---- int8 / int16 / f32 tables ----------------------------------------------
+
+
+@pytest.mark.parametrize("qmax", [127, 32767])
+def test_quantize_lut_bit_exact(qmax):
+    rng = np.random.default_rng(qmax)
+    lut = (5 * rng.standard_normal((3, 6, 128))).astype(np.float32)
+    # token 0's absmax is qmax, so its scale is 1: entries on .5 ties round
+    # half to even in both packages
+    lut[0] = np.round(lut[0])
+    lut[0, 0, :8] = [qmax, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]
+    lut[2] = 0.0  # an all-zero table: the 1e-30 floor of the scale
+    jq, tq = {127: (jctor.quantize_lut_int8, tctor.quantize_lut_int8),
+              32767: (jctor.quantize_lut_int16, tctor.quantize_lut_int16)}[qmax]
+    for axis in (-1, (1, 2)):
+        jl, js = jq(jnp.asarray(lut), axis=axis)
+        tl_, ts = tq(torch.from_numpy(lut), axis=axis)
+        assert tl_.dtype == (torch.int8 if qmax == 127 else torch.int16)
+        assert np.array_equal(tl_.numpy(), np.asarray(jl))
+        assert np.array_equal(ts.numpy(), np.asarray(js))
+    assert tl_[0, 0, :8].tolist() == [qmax, 0, 2, 2, 0, -2, -2, 4]
+
+
+@pytest.mark.parametrize("variant", ["i8", "i16", "f32"])
+def test_lut_gemv_packed_matches_jax_given_tables(variant):
+    """The same f32 tables through both packages' lookup: int8 and int16
+    bit for bit (exact integer sums, the same scale order), f32 to 1e-6."""
+    jcfg, tcfg, jp, tp = make_params(256, 300, shared=False, seed=11)
+    lut = np.random.default_rng(12).standard_normal((5, jcfg.n_groups, 256)).astype(np.float32)
+    want = np.asarray(jlut._lut_gemv_packed(jcfg, jlut.pack_params(jcfg, jp), jnp.asarray(lut),
+                                            block_j=128, interpret=True, variant=variant))
+    got = tlut.lut_gemv_packed(tcfg, tlut.pack_params(tcfg, tp), torch.from_numpy(lut),
+                               variant=variant).numpy()
+    assert got.shape == want.shape == (5, 300)
+    if variant == "f32":
+        assert rel_err(got, want) <= 1e-6
+    else:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant,tol", [("f32", 1e-4), ("i8", BF16_TOL), ("i16", 1e-4)])
+def test_lut_gemv_table_variants_match(variant, tol):
+    """``lut_gemv`` builds the tables in each variant's precision (bf16 for
+    i8, f32 for f32 and i16); the builds agree to an ulp, so an int8 entry
+    may land one step apart at a rounding boundary."""
+    jcfg, tcfg, jp, tp = make_params(128, 200, shared=True, seed=13, dtype=np.float32)
+    x = np.random.default_rng(14).standard_normal((3, 128)).astype(np.float32)
+    want = jlut.lut_gemv(jcfg, jlut.pack_params(jcfg, jp), jnp.asarray(x), interpret=True,
+                         variant=variant)
+    got = tlut.lut_gemv(tcfg, tlut.pack_params(tcfg, tp), torch.from_numpy(x), variant=variant)
+    assert rel_err(got.numpy(), want) <= tol
+
+
+def test_quantized_linear_explicit_variants():
+    """``QuantizedLinear.apply(strategy="lut_gemv", variant=...)`` reaches
+    each table kernel's wrapper (here its plain version) and stays near
+    the dense product."""
+    _, tcfg, _, tp = make_params(128, 64, shared=True, seed=15, dtype=np.float32)
+    layer = tlin.QuantizedLinear(tlut.pack_params(tcfg, tp))
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal((2, 128)).astype(np.float32))
+    dense = layer.apply(tcfg, x, strategy="dense_bf16")
+    for variant, tol in (("f32", 1e-5), ("i16", 1e-4), ("i8", 2e-2)):
+        y = layer.apply(tcfg, x, strategy="lut_gemv", variant=variant)
+        assert rel_err(y.numpy(), dense.numpy()) <= tol, variant
+
+
 @pytest.mark.parametrize("batch", [8, 16])
 def test_dequant_matmul_bf16x2_matches(batch):
     jcfg, tcfg, jp, tp = make_params(256, 384, shared=True, seed=batch)
@@ -235,6 +302,9 @@ def test_kernel_launch_rejects_cpu_tensors():
         tlut._launch(lut, pk.codes_t, pk.scales, pk.d_out)
     with pytest.raises(ValueError, match="CUDA"):
         tdq._launch(tcfg, pk, torch.zeros(8, 256))
+    for dtype in (torch.float32, torch.int8, torch.int16):
+        with pytest.raises(ValueError, match="CUDA"):
+            tlut._launch_table(lut.to(dtype), pk.codes_t, pk.scales, pk.d_out)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -251,7 +321,6 @@ def test_unported_variants_raise():
     _, tcfg, _, tp = make_params(256, 128, shared=True)
     pk = tlut.pack_params(tcfg, tp)
     with pytest.raises(ValueError, match="not ported"):
-        tlut.lut_gemv(tcfg, pk, torch.zeros(1, 256), variant="i8")
+        tlut.lut_gemv(tcfg, pk, torch.zeros(1, 256), variant="pairf")
     with pytest.raises(NotImplementedError):
         tdq.dequant_matmul(tcfg, pk, torch.zeros(8, 256), tables="i8")
-

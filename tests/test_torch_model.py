@@ -29,7 +29,7 @@ def carried(kw, seed, dtype):
     jcfg = jl.LlamaConfig.tiny(**kw)
     jw = jl.init_llama(jax.random.PRNGKey(seed), jcfg, dtype=dtype)
     tcfg = tl.LlamaConfig.tiny(**kw)
-    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw))
+    return jcfg, jw, tcfg, llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def test_port_reproduces_golden_logits_fixture(golden_model):
     want = np.load(path)["logits"]
     _, _, tcfg, tw = golden_model
     logits, _ = tl.llama_forward(
-        tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1), 0,
+        tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1, device="cpu"), 0,
         strategy="lut_gemv", variant="f32",
     )
     np.testing.assert_allclose(logits.numpy(), want, rtol=1e-4, atol=1e-4)
@@ -68,7 +68,7 @@ def test_forward_logits_match_jax_per_strategy(strategy, variant, tol):
         strategy=strategy, interpret=True, variant=variant,
     )
     got, _ = tl.llama_forward(
-        tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1), 0,
+        tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1, device="cpu"), 0,
         strategy=strategy, variant=variant,
     )
     want = np.asarray(want)
@@ -81,10 +81,10 @@ def test_forward_logits_match_jax_per_strategy(strategy, variant, tol):
 def test_logits_modes_pick_rows_of_all(golden_model, mode):
     _, _, tcfg, tw = golden_model
     toks = torch.tensor([[1, 7, 3, 11, 5], [2, 4, 6, 8, 10]])
-    full, _ = tl.llama_forward(tcfg, tw, toks, tl.init_caches(tcfg, 2), 0,
+    full, _ = tl.llama_forward(tcfg, tw, toks, tl.init_caches(tcfg, 2, device="cpu"), 0,
                                strategy="dequant_mm")
     idx = torch.tensor([4, 2])
-    got, _ = tl.llama_forward(tcfg, tw, toks, tl.init_caches(tcfg, 2), 0,
+    got, _ = tl.llama_forward(tcfg, tw, toks, tl.init_caches(tcfg, 2, device="cpu"), 0,
                               strategy="dequant_mm", logits_mode=mode, logits_idx=idx)
     rows = idx if mode == "index" else torch.tensor([4, 4])
     torch.testing.assert_close(got[:, 0], full[torch.arange(2), rows])
@@ -100,7 +100,7 @@ def test_update_cache_matches(kv_dtype, per_sequence):
     jdt, tdt = (jnp.int8, torch.int8) if kv_dtype == "int8" else (jnp.bfloat16, torch.bfloat16)
     jc = jkv.update_cache(jkv.KVCache.init(2, 8, 2, 16, jdt), jnp.asarray(k),
                           jnp.asarray(v), jnp.asarray(pos))
-    tc = tkv.update_cache(tkv.KVCache.init(2, 8, 2, 16, tdt), torch.from_numpy(k),
+    tc = tkv.update_cache(tkv.KVCache.init(2, 8, 2, 16, tdt, device="cpu"), torch.from_numpy(k),
                           torch.from_numpy(v), torch.from_numpy(np.asarray(pos)))
     for name in ("k_q", "v_q", "k_scale", "v_scale"):
         got = getattr(tc, name).float().numpy()
@@ -133,7 +133,7 @@ def test_attention_window_matches():
     tcfg = tl.LlamaConfig.tiny(hidden=h * dh, n_heads=h, n_kv_heads=hkv, max_seq=s)
     jc = jkv.update_cache(jkv.KVCache.init(b, s, hkv, dh), jnp.asarray(kv[0]),
                           jnp.asarray(kv[1]), jnp.int32(0))
-    tc = tkv.update_cache(tkv.KVCache.init(b, s, hkv, dh), torch.from_numpy(kv[0]),
+    tc = tkv.update_cache(tkv.KVCache.init(b, s, hkv, dh, device="cpu"), torch.from_numpy(kv[0]),
                           torch.from_numpy(kv[1]), 0)
     want = jl._attention_window(jcfg, jnp.asarray(q), jc, jnp.asarray(off), 8)
     got = tl._attention_window(tcfg, torch.from_numpy(q), tc, torch.from_numpy(off), 8)
@@ -148,7 +148,7 @@ def test_init_llama_on_generator_device():
     assert a.layers[0].w_down.packed.codes_t.shape == (64, 128)
     assert torch.equal(a.layers[0].wq.packed.codes_t, b.layers[0].wq.packed.codes_t)
     logits, _ = tl.llama_forward(cfg, a, torch.tensor([[1, 2, 3]]),
-                                 tl.init_caches(cfg, 1), 0)
+                                 tl.init_caches(cfg, 1, device="cpu"), 0)
     assert logits.shape == (1, 3, 32) and torch.isfinite(logits).all()
 
 
@@ -157,11 +157,11 @@ def test_stacked_caches_and_flash_attention_not_ported(golden_model):
     """Stacked caches still raise.  ``attn="flash"`` is ported now: its
     prefill logits agree with the einsum path's within test_flash.py's 2e-2
     (other rounding points: per-block softmax, p rounded before scaling)."""
-    caches = tl.init_caches(tcfg, 1)
+    caches = tl.init_caches(tcfg, 1, device="cpu")
     with pytest.raises(NotImplementedError):
         tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), caches[0], 0)
     kw = dict(strategy="lut_gemv", variant="f32")
     flash, _ = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), caches, 0, attn="flash", **kw)
-    xla, _ = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1), 0,
+    xla, _ = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1, device="cpu"), 0,
                               attn="xla", **kw)
     np.testing.assert_allclose(flash.numpy(), xla.numpy(), rtol=2e-2, atol=2e-2)

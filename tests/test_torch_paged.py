@@ -57,7 +57,7 @@ def pools():
     n_slots, max_blocks, h, dh = 3, 4, 2, 32
     n_blocks = 1 + n_slots * max_blocks + 6
     jp = jpc.PagedKVCache.init(n_blocks, n_slots, max_blocks, h, dh, BS)
-    tp = tpc.PagedKVCache.init(n_blocks, n_slots, max_blocks, h, dh, BS)
+    tp = tpc.PagedKVCache.init(n_blocks, n_slots, max_blocks, h, dh, BS, device="cpu")
     for slot, blocks in enumerate(tables_for(n_slots, max_blocks, n_blocks, seed=0)):
         jp = jp.set_table(slot, blocks)
         assert tp.set_table(slot, blocks) is tp
@@ -71,7 +71,7 @@ def slab_prefill(rng, b, t, h, dh, s_max):
     v = rng.standard_normal((b, t, h, dh)).astype(np.float32)
     j = jkv.update_cache(jkv.KVCache.init(b, s_max, h, dh), jnp.asarray(k), jnp.asarray(v),
                          jnp.int32(0))
-    t_ = tkv.update_cache(tkv.KVCache.init(b, s_max, h, dh), torch.from_numpy(k),
+    t_ = tkv.update_cache(tkv.KVCache.init(b, s_max, h, dh, device="cpu"), torch.from_numpy(k),
                           torch.from_numpy(v), 0)
     assert_same(t_, j)
     return j, t_
@@ -153,7 +153,7 @@ def test_llama_decode_paged_matches_slab(attn):
     kw = dict(n_layers=1, max_seq=64)
     jcfg, tcfg = jl.LlamaConfig.tiny(**kw), tl.LlamaConfig.tiny(**kw)
     jw = jl.init_llama(jax.random.PRNGKey(7), jcfg, dtype=jnp.float32)
-    tw = llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw))
+    tw = llama_from_numpy(tcfg, jax.tree.map(np.asarray, jw), device="cpu")
     b, t0 = 2, 5
     tokens = np.array(jax.random.randint(jax.random.PRNGKey(1), (b, t0 + 3), 0,
                                            jcfg.vocab_size), np.int32)
@@ -170,8 +170,8 @@ def test_llama_decode_paged_matches_slab(attn):
             p = p.write_slot(jkv.KVCache(*[x[slot : slot + 1] for x in jcaches[li]]), slot, t0)
         jpaged.append(p)
     np_tree = lambda c: jax.tree.map(np.asarray, c)  # noqa: E731
-    tcaches = kv_caches_from_numpy(np_tree(jcaches))
-    tpaged = paged_caches_from_numpy(np_tree(tuple(jpaged)))
+    tcaches = kv_caches_from_numpy(np_tree(jcaches), device="cpu")
+    tpaged = paged_caches_from_numpy(np_tree(tuple(jpaged)), device="cpu")
     jpaged = tuple(jpaged)
     pos = np.full((b,), t0, np.int32)
     for step in range(2):

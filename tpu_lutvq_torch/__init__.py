@@ -1,8 +1,10 @@
 """tpu-lutvq, PyTorch + CUDA port for NVIDIA Hopper.
 
 The JAX/Pallas package ``tpu_lutvq`` is the reference; this package serves
-the same AQLM-2x8 Llama ``generate()`` and ``ContinuousBatcher`` paths with
-PyTorch around hand-written CUDA kernels (``csrc/``).  It imports no jax.
+the same AQLM-2x8 Llama ``generate()`` and ``ContinuousBatcher`` paths, and
+the same PQ/RQ ANN search, with PyTorch around hand-written CUDA kernels
+(``csrc/``).  It imports no jax.  Entry points that make tensors put them on
+the CUDA device unless a ``device`` argument says otherwise.
 
 - ``tpu_lutvq_torch.core``    — VQ<D,M,N,K> configs, params, golden model
 - ``tpu_lutvq_torch.kernels`` — LUT build, LUT-GEMV, dequant-matmul and flash
@@ -11,6 +13,8 @@ PyTorch around hand-written CUDA kernels (``csrc/``).  It imports no jax.
                                  (slab and paged), attention policy
 - ``tpu_lutvq_torch.runtime`` — ``generate()``, chunked prefill, the batcher
 - ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package
+- ``tpu_lutvq_torch.ann``     — PQ/RQ ANN search engine: k-means, f32/int8/int16
+                                 table scans, refined search, SDC, OPQ
 """
 
 from tpu_lutvq_torch.core.config import (  # noqa: F401
@@ -23,5 +27,6 @@ from tpu_lutvq_torch.core.config import (  # noqa: F401
 )
 from tpu_lutvq_torch.core.params import VQParams, init_vq_params  # noqa: F401
 from tpu_lutvq_torch.core import golden  # noqa: F401
+from tpu_lutvq_torch import ann  # noqa: F401
 
 __version__ = "0.1.0"

@@ -44,7 +44,7 @@ class VQParams(NamedTuple):
         return self.codes.shape[0]
 
 
-def tmac_codebook(cfg: VQConfig, dtype=torch.float16, device="cpu") -> torch.Tensor:
+def tmac_codebook(cfg: VQConfig, dtype=torch.float16, device="cuda") -> torch.Tensor:
     """Bit-serial codebook: entry k of codebook n is the ±1 binary expansion of
     k over d_subvec dims, scaled by 2^n (reference: vq.py:38-50)."""
     k_ids = np.arange(cfg.n_cluster)[:, None]

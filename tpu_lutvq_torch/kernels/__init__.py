@@ -2,10 +2,16 @@
 and the flash attention kernels, wrappers around the hand-written CUDA
 kernels in ``csrc/``."""
 
-from tpu_lutvq_torch.kernels.lut_ctor import LANE, build_lut  # noqa: F401
+from tpu_lutvq_torch.kernels.lut_ctor import (  # noqa: F401
+    LANE,
+    build_lut,
+    quantize_lut_int8,
+    quantize_lut_int16,
+)
 from tpu_lutvq_torch.kernels.lut_gemv import (  # noqa: F401
     PackedVQ,
     lut_gemv,
+    lut_gemv_packed,
     pack_params,
 )
 from tpu_lutvq_torch.kernels.dequant_mm import dequant_matmul  # noqa: F401

@@ -42,3 +42,26 @@ def build_lut(
     if cfg.n_cluster < LANE:
         lut = torch.nn.functional.pad(lut, (0, LANE - cfg.n_cluster))
     return lut
+
+
+def _quantize_lut(lut: torch.Tensor, axis, qmax: float, dtype: torch.dtype):
+    absmax = lut.abs().amax(dim=axis, keepdim=True)
+    scale = absmax.clamp_min(1e-30) / qmax
+    # a division, as the JAX package takes it (a reciprocal multiply can
+    # round differently); torch.round rounds half to even like jnp.round
+    lut_q = torch.round(lut / scale).clamp(-qmax, qmax).to(dtype)
+    return lut_q, scale
+
+
+def quantize_lut_int8(lut: torch.Tensor, axis=-1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int8 range quantization of a LUT: ``(lut_q int8,
+    scale f32)`` with ``lut ≈ lut_q * scale``, the scale ``absmax / 127``
+    over ``axis`` (the reference's QuantizerMAX; bit for bit the JAX
+    package's ``quantize_lut_int8``)."""
+    return _quantize_lut(lut, axis, 127.0, torch.int8)
+
+
+def quantize_lut_int16(lut: torch.Tensor, axis=-1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int16 tier of :func:`quantize_lut_int8` (scale ``absmax /
+    32767``): ~15 bits of table precision where int8's 7 saturate."""
+    return _quantize_lut(lut, axis, 32767.0, torch.int16)

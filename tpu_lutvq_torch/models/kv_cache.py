@@ -29,7 +29,7 @@ class KVCache(NamedTuple):
     @classmethod
     def init(
         cls, batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
-        dtype=torch.int8, scale_dtype=torch.float32, device="cpu",
+        dtype=torch.int8, scale_dtype=torch.float32, device="cuda",
     ) -> "KVCache":
         shape = (batch, n_kv_heads, max_seq, head_dim)
         return cls(

@@ -60,7 +60,8 @@ class QuantizedLinear(NamedTuple):
         """x: ``(..., d_in)`` → ``(..., d_out)`` float32.
 
         ``variant`` picks the lookup flavour under ``lut_gemv`` ("auto" → the
-        bf16 pair tables; "f32" → exact f32 tables).  ``plain=True`` runs the
+        bf16 pair tables; "f32" → exact f32 tables; "i8"/"i16" → per-token
+        int8/int16 tables with integer sums).  ``plain=True`` runs the
         kernels' plain versions on any device (reference runs only)."""
         lead = x.shape[:-1]
         xb = x.reshape(-1, x.shape[-1])

@@ -349,7 +349,7 @@ def llama_decode_step(
     return logits[:, 0], caches
 
 
-def init_caches(cfg: LlamaConfig, batch: int, device="cpu") -> tuple[KVCache, ...]:
+def init_caches(cfg: LlamaConfig, batch: int, device="cuda") -> tuple[KVCache, ...]:
     dtype = torch.int8 if cfg.kv_dtype == "int8" else torch.bfloat16
     sdtype = torch.bfloat16 if cfg.kv_scale_dtype == "bf16" else torch.float32
     return tuple(

@@ -59,7 +59,7 @@ class PagedKVCache(NamedTuple):
         head_dim: int,
         block_size: int = DEFAULT_BLOCK,
         dtype=torch.int8,
-        device="cpu",
+        device="cuda",
     ) -> "PagedKVCache":
         shape = (n_blocks, n_kv_heads, block_size, head_dim)
         return cls(

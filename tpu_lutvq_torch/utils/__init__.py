@@ -1,9 +1,13 @@
-"""Parameter and cache-state conversion from the JAX package (numpy in,
-torch out)."""
+"""Parameter, cache-state and ANN-state conversion from the JAX package
+(numpy in, torch out)."""
 
 from tpu_lutvq_torch.utils.convert import (  # noqa: F401
     kv_caches_from_numpy,
     llama_from_numpy,
+    mixed_pq_from_numpy,
+    opq_from_numpy,
     packed_from_numpy,
     paged_caches_from_numpy,
+    pq_from_numpy,
+    rq_from_numpy,
 )

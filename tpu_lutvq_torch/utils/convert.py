@@ -1,8 +1,10 @@
 """Carry JAX-package parameters into the port.
 
 The inputs are the JAX package's pytrees with every leaf already turned
-into a numpy array (``jax.tree.map(np.asarray, tree)``), so this module
-needs no jax: it reads the containers' fields by name.
+into a numpy array (``jax.tree.map(np.asarray, tree)``), or its ANN
+objects, whose array fields anything ``np.array`` takes may fill.  This
+module needs no jax: it reads the containers' fields by name.  Every
+function puts its tensors on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_lutvq_torch.ann.opq import OPQ
+from tpu_lutvq_torch.ann.pq import MixedPQ, ProductQuantizer, ResidualQuantizer
 from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ
 from tpu_lutvq_torch.models.kv_cache import KVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear
@@ -19,7 +23,7 @@ from tpu_lutvq_torch.models.llama import LayerWeights, LlamaConfig, LlamaWeights
 _PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """numpy → torch, including ml_dtypes' bfloat16 (bit-exact)."""
     a = np.array(a)  # a writable copy: jax hands out read-only buffers
     if a.dtype.name == "bfloat16":
@@ -27,7 +31,7 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def packed_from_numpy(p, device="cpu") -> PackedVQ:
+def packed_from_numpy(p, device="cuda") -> PackedVQ:
     """A JAX ``PackedVQ`` (numpy leaves) → the port's ``PackedVQ``."""
     if getattr(p, "shards", 1) != 1 or getattr(p, "nibbles", False) or getattr(
         p, "out_group", 1
@@ -46,7 +50,7 @@ def packed_from_numpy(p, device="cpu") -> PackedVQ:
     )
 
 
-def llama_from_numpy(cfg: LlamaConfig, tree, device="cpu") -> LlamaWeights:
+def llama_from_numpy(cfg: LlamaConfig, tree, device="cuda") -> LlamaWeights:
     """A JAX ``LlamaWeights`` (per-layer tuple, numpy leaves) → the port's."""
     if len(tree.layers) != cfg.n_layers:
         raise ValueError(
@@ -72,7 +76,7 @@ def llama_from_numpy(cfg: LlamaConfig, tree, device="cpu") -> LlamaWeights:
     )
 
 
-def kv_caches_from_numpy(caches, device="cpu") -> tuple[KVCache, ...]:
+def kv_caches_from_numpy(caches, device="cuda") -> tuple[KVCache, ...]:
     """The JAX package's per-layer slab caches (numpy leaves) → the port's."""
     return tuple(
         KVCache(*(tensor_from_numpy(getattr(c, f), device) for f in KVCache._fields))
@@ -80,9 +84,34 @@ def kv_caches_from_numpy(caches, device="cpu") -> tuple[KVCache, ...]:
     )
 
 
-def paged_caches_from_numpy(caches, device="cpu") -> tuple[PagedKVCache, ...]:
+def paged_caches_from_numpy(caches, device="cuda") -> tuple[PagedKVCache, ...]:
     """The JAX package's per-layer paged caches (numpy leaves) → the port's."""
     return tuple(
         PagedKVCache(*(tensor_from_numpy(getattr(c, f), device) for f in PagedKVCache._fields))
         for c in caches
     )
+
+
+def pq_from_numpy(pq, device="cuda") -> ProductQuantizer:
+    """A JAX ``ProductQuantizer`` → the port's, with its centroids."""
+    return ProductQuantizer(int(pq.d), int(pq.m), int(pq.k),
+                            centroids=tensor_from_numpy(pq.centroids, device))
+
+
+def rq_from_numpy(rq, device="cuda") -> ResidualQuantizer:
+    """A JAX ``ResidualQuantizer`` → the port's, with its codebooks."""
+    return ResidualQuantizer(int(rq.d), int(rq.n_codebooks), int(rq.k),
+                             codebooks=tensor_from_numpy(rq.codebooks, device))
+
+
+def mixed_pq_from_numpy(mpq, device="cuda") -> MixedPQ:
+    """A JAX ``MixedPQ`` → the port's, with each subquantizer's centroids."""
+    return MixedPQ(int(mpq.d), tuple(int(k) for k in mpq.ks),
+                   quantizers=[tensor_from_numpy(c, device) for c in mpq.quantizers])
+
+
+def opq_from_numpy(opq, device="cuda") -> OPQ:
+    """A JAX ``OPQ`` → the port's: the rotation and the PQ behind it."""
+    return OPQ(int(opq.d), int(opq.m), int(opq.k),
+               rotation=tensor_from_numpy(opq.rotation, device),
+               pq=pq_from_numpy(opq.pq, device))
