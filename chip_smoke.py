@@ -17,9 +17,12 @@ Phases, one result line each; any failure raises and exits non-zero:
      phase 5 gives them (8 queries over a million codes: bf16 tables at
      PQ16 and at RQ's 4 codebooks, f32 at PQ16 and at the refine bounds' 8
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
-     int8, int16) a 7B projection.  Wrong-rounding controls must fail each
-     kernel's tolerance (the int8 and int16 lookups must equal their plain
-     versions; truncating instead of rounding must not).  Each row
+     int8, int16) a 7B projection; the precision tiers at the 7B projection
+     shapes: the W8A8 dequant-matmul at 7/8/16/256 rows, the f32 one at
+     7/256 rows, ``pairf`` at one token.  Wrong-rounding controls must fail
+     each kernel's tolerance (the int8 and int16 lookups and the W8A8
+     matmul must equal their plain versions, ``pairf`` the ``pair`` kernel;
+     truncating instead of rounding must not).  Each row
      also times one PyTorch library call computing the same function and
      states the least time the card could take (bytes or operations);
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
@@ -46,16 +49,31 @@ Phases, one result line each; any failure raises and exits non-zero:
      width PQ once each.  Each search prints queries/s, R@1/10/100 against
      exact brute force on the raw base and its kernels' launches; the int8,
      int16 and f32 table kernels must launch in theirs, and the refined
-     search must return the exact f32-table top-100.
+     search must return the exact f32-table top-100;
+  6. tiers (run after phase 4, on its model): (a) batcher run (iv), run
+     (i)'s 16 requests at ``quality="fast"``: the W8A8 kernel must launch at
+     every 8-row decode tick and the bf16x2 one never, and a B=8 step from
+     its caches must match the plain versions' fast step as in phase 4; (b)
+     one B=1 decode step with ``variant="pairf"``, 224 ``pairf`` launches,
+     logits equal to the ``pair`` step's; (c) ``sequence_logprobs`` of 4 × 256
+     seeded tokens exact, W8A8 and through the f32 oracle (which must
+     launch): KL and perplexity ratios against the oracle (findings).
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile   # phases 0-1, then the profile below
 
-profiles batcher run (i) instead: device busy share, launches and device
-time by kernel (torch.profiler), and a B=8 decode step, flash against
-einsum attention.
+profiles batcher runs (i) and (iv) (``quality="fast"``) instead: device
+busy share, launches and device time by kernel (torch.profiler), and a B=8
+decode step, flash against einsum attention.
+
+    python3 chip_smoke.py --guard     # phases 0-1, then 2-4 and 6 guarded
+
+runs phases 2, 3, 4 and 6 with every CUDA buffer that a kernel wrapper
+allocates (outputs, workspaces) placed between two bands of 0xA5 bytes, and
+fails if any kernel wrote into a band: a check for writes past the end of a
+buffer, which no tool on the card reports.
 """
 
 import contextlib
@@ -98,7 +116,7 @@ TABLE_SCANS = {
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and operations/s
 # by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # max|logits - plain logits| / max|plain logits|, prefill and first step.
 # The random 7B model turns last-bit differences into int8-KV and bf16
 # rounding flips: the plain versions with reordered f32 sums read 0.87-2.0e-2
@@ -110,6 +128,16 @@ SHAPES = (  # (d_in, d_out): the Llama-2-7B projections, and a padded d_out
 )
 LUT_BATCHES = (1, 2, 3, 4, 8)  # decode rows: 1 token tile, ragged and full
 DEQUANT_ROWS = (7, 16, 256)  # prefill rows: partial and full 64-row tiles
+# The precision tiers (phase 2).  W8A8 (dequant_mm_i8): 7 prefill rows, the
+# batcher's 8 decode rows, partial and full 64-row tiles; it sums integers
+# exactly, so kernel and plain version must be equal.  f32 (dequant_mm_f32):
+# f32 sums in another order than the plain version's matmul; H100 readings
+# 1.77-3.73e-6 against >= 2.09e-3 for the bf16x2 control (PERF.md).  pairf
+# (lut_gemv_pairf): equal to the pair kernel, within 1e-5 of plain.
+I8_ROWS = (7, 8, 16, 256)
+F32_ROWS = (7, 256)
+TIER_TOL = {"dequant_mm_i8": 0.0, "dequant_mm_f32": 1e-5, "lut_gemv_pairf": 1e-5}
+EVAL_B, EVAL_T = 4, 256  # phase 6 (c): sequences scored under each tier
 # Attention kernels, max|kernel - plain| / max|plain| per call.  Kernel and
 # plain version compute the same function with the same rounding points and
 # differ only in f32 summation order, which now and then moves a p across a
@@ -153,6 +181,8 @@ SUMMARY_AT = {
     "flash_prefill": "B=1 H=32/32 T=256 off=(512,)",
     "lut_gemv_f32": "scan B=8 G=8 K=256", "lut_gemv_i8": "scan B=8 G=16 K=256",
     "lut_gemv_i16": "scan B=8 G=16 K=256",
+    "dequant_mm_i8": "4096x4096 rows=8", "dequant_mm_f32": "4096x4096 rows=256",
+    "lut_gemv_pairf": "4096x4096 B=1",
 }
 # phase 5: FAISS benchs/bench_polysemous_sift1m.py, IndexPQ(128, 16, 8)
 ANN_D, ANN_M, ANN_K = 128, 16, 256
@@ -536,6 +566,129 @@ def phase_tables(device):
     return rows
 
 
+def truncating_fold(cfg, x, s):
+    """``fold_activations_i8`` with x4/xs truncated instead of rounded half
+    to even (a control)."""
+    b = x.shape[0]
+    x4 = x.float().reshape(b, 1, cfg.n_subvec, cfg.d_subvec) * s.permute(1, 0, 2)[None]
+    xs = torch.clamp_min(x4.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
+    x_i8 = torch.clamp(torch.trunc(x4 / xs[:, None, None, None]), -127, 127)
+    return x_i8.to(torch.int8), xs
+
+
+@contextlib.contextmanager
+def truncating_folds():
+    """Put :func:`truncating_fold` in place of the W8A8 activation fold."""
+    _, dq = kernel_modules()
+    saved = dq.fold_activations_i8
+    dq.fold_activations_i8 = truncating_fold
+    try:
+        yield
+    finally:
+        dq.fold_activations_i8 = saved
+
+
+def phase_tiers(device):
+    """The precision tiers' kernels against their plain versions at the
+    Llama-2-7B projection shapes: the W8A8 dequant-matmul (G) on prepared
+    int8 inputs, bit for bit, against a truncating fold; the f32 one (L)
+    against the bf16x2 function; ``pairf`` (M) equal to the ``pair``
+    kernel (A) on the same f32 table, against f32 entries (K's function).
+    ``wrapper_ms`` times the whole ``dequant_matmul``/``lut_gemv`` call."""
+    from tpu_lutvq_torch import aqlm_2x8, init_vq_params
+    from tpu_lutvq_torch.kernels.lut_ctor import build_lut
+
+    lg, dq = kernel_modules()
+    gen = torch.Generator(device).manual_seed(777)
+    rows = {"dequant_mm_i8": [], "dequant_mm_f32": [], "lut_gemv_pairf": []}
+    for d_in, d_out in SHAPES:
+        cfg = aqlm_2x8(d_in, shared_codebook=True)
+        packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
+        w_bf16 = dense_bf16(cfg, packed)
+        q, s = dq.quantize_tables_i8(cfg, packed.codebook)
+        w_i8 = dq.weight_i8(cfg, packed, q).reshape(d_out, -1).contiguous()
+        for r in I8_ROWS:
+            x = torch.randn((r, d_in), generator=gen, device=device)
+            x_i8, xs = dq.fold_activations_i8(cfg, x, s)
+            args = (cfg, packed, x_i8, xs, q)
+            got, want = dq.dequant_mm_i8(*args), dq.dequant_mm_i8_plain(*args)
+            control = dq.dequant_mm_i8_plain(cfg, packed, *truncating_fold(cfg, x, s), q)
+            y = dq.dequant_matmul(cfg, packed, x, tables="i8")
+            y_plain = dq.dequant_matmul(cfg, packed, x, tables="i8", plain=True)
+            torch.cuda.synchronize()
+            x2 = x_i8.reshape(r, -1)
+            # torch._int_mm's shape rules: more than 16 rows, K and N multiples of 8
+            if r > 16 and x2.shape[1] % 8 == 0 and d_out % 8 == 0:
+                library, call = (lambda: torch._int_mm(x2, w_i8.T)), "torch._int_mm int8"
+            else:
+                xb = x.to(torch.bfloat16)
+                library, call = (lambda: xb @ w_bf16.T), "x @ W.T bf16"
+            rows["dequant_mm_i8"].append(with_bound(dict(
+                shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
+                equal=bool(torch.equal(got, want)), abs=float((got - want).abs().max()),
+                control=rel_err(control, want), wrapper_rel=rel_err(y, y_plain),
+                ms=time_ms(lambda: dq.dequant_mm_i8(*args), reps=10),
+                plain_ms=time_ms(lambda: dq.dequant_mm_i8_plain(*args), reps=5),
+                library_ms=time_ms(library, reps=10), library=call,
+                wrapper_ms=time_ms(lambda: dq.dequant_matmul(cfg, packed, x, tables="i8"),
+                                   reps=10),
+            ), nbytes(x_i8, xs, packed.codes_t, q, packed.scales, got),
+                2 * r * x2.shape[1] * d_out, "int8"))
+        del w_i8
+        w_f32 = dq.dequant_weight(cfg, packed, round_bf16=False)
+        for r in F32_ROWS:
+            x = torch.randn((r, d_in), generator=gen, device=device)
+            got, want = dq.dequant_mm_f32(cfg, packed, x), dq.dequant_mm_f32_plain(cfg, packed, x)
+            torch.cuda.synchronize()
+            rows["dequant_mm_f32"].append(with_bound(dict(
+                shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
+                abs=float((got - want).abs().max()),
+                control=rel_err(dq.dequant_mm_plain(cfg, packed, x), want),
+                ms=time_ms(lambda: dq.dequant_mm_f32(cfg, packed, x), reps=10),
+                plain_ms=time_ms(lambda: dq.dequant_mm_f32_plain(cfg, packed, x), reps=5),
+                library_ms=time_ms(lambda: x @ w_f32.T, reps=10), library="x @ W.T f32",
+            ), nbytes(x, packed.codes_t, packed.codebook.float(), packed.scales, got),
+                2 * r * d_in * d_out, "f32"))
+        del w_f32
+        x = torch.randn((1, d_in), generator=gen, device=device)
+        lut = build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16)
+        args = (lut, packed.codes_t, packed.scales, packed.d_out)
+        got, pair, want = lg.lut_lookup_pairf(*args), lg.lut_lookup(*args), lg.lut_lookup_plain(*args)
+        y = lg.lut_gemv(cfg, packed, x, variant="pairf")
+        y_pair = lg.lut_gemv(cfg, packed, x, variant="pair")
+        torch.cuda.synchronize()
+        xb = x.to(torch.bfloat16)
+        rows["lut_gemv_pairf"].append(with_bound(dict(
+            shape=f"{d_in}x{d_out} B=1", rel=rel_err(got, want),
+            equal=bool(torch.equal(got, pair)) and bool(torch.equal(y, y_pair)),
+            abs=float((got - want).abs().max()),
+            control=rel_err(lg.lut_lookup_plain(*args, round_bf16=False), want),
+            ms=time_ms(lambda: lg.lut_lookup_pairf(*args)),
+            pair_ms=time_ms(lambda: lg.lut_lookup(*args)),
+            plain_ms=time_ms(lambda: lg.lut_lookup_plain(*args)),
+            library_ms=time_ms(lambda: xb @ w_bf16.T), library="x @ W.T bf16",
+            wrapper_ms=time_ms(lambda: lg.lut_gemv(cfg, packed, x, variant="pairf")),
+        ), nbytes(*args[:3], got), cfg.n_groups * d_out, "f32"))
+        del w_bf16
+    for name, rs in rows.items():
+        tol = TIER_TOL[name]
+        for r in rs:
+            extra = ""
+            if "wrapper_ms" in r:
+                extra = f"  whole call {r['wrapper_ms']:.4f} ms"
+            if "pair_ms" in r:
+                extra += f"  pair kernel {r['pair_ms']:.4f} ms"
+            print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
+                  f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
+                  + times(r) + f" [library: {r['library']}]" + extra)
+            check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
+            check(r.get("equal", True), f"{name} {r['shape']}: not equal to its reference")
+            check(r.get("wrapper_rel", 0.0) == 0.0,
+                  f"{name} {r['shape']}: dequant_matmul differs from plain: {r.get('wrapper_rel')}")
+    return rows
+
+
 def kv_cache(gen, lead, dh, kv_dtype, device):
     """Random K, V and their row scales: int8 values with scales in
     [0.005, 0.02), or bf16 values with unit scales."""
@@ -846,15 +999,20 @@ def counters():
             "flash_prefill": (fp, "FLASH_PREFILL_LAUNCHES"),
             "lut_gemv_f32": (lg, "LUT_GEMV_F32_LAUNCHES"),
             "lut_gemv_i8": (lg, "LUT_GEMV_I8_LAUNCHES"),
-            "lut_gemv_i16": (lg, "LUT_GEMV_I16_LAUNCHES")}
+            "lut_gemv_i16": (lg, "LUT_GEMV_I16_LAUNCHES"),
+            "dequant_mm_i8": (dq, "DEQUANT_MM_I8_LAUNCHES"),
+            "dequant_mm_f32": (dq, "DEQUANT_MM_F32_LAUNCHES"),
+            "lut_gemv_pairf": (lg, "LUT_GEMV_PAIRF_LAUNCHES")}
 
 
-def serve(cfg, weights, prompts, run_kw=None, **kw):
+def serve(cfg, weights, prompts, run_kw=None, watch=None, **kw):
     """One batcher run from zeroed launch counters: (outputs by id, seconds,
-    launches by kernel, the batcher)."""
+    launches by kernel, the batcher).  ``watch(batcher)`` runs before it."""
     from tpu_lutvq_torch.runtime import ContinuousBatcher, Request
 
     b = ContinuousBatcher(cfg, weights, n_slots=N_SLOTS, **kw)
+    if watch is not None:
+        watch(b)
     for i, p in enumerate(prompts):
         b.submit(Request(req_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
     for mod, name in counters().values():
@@ -926,13 +1084,151 @@ def phase_batcher(device, cfg, weights):
     # 2^-9 relative change of q) reads at the plain-vs-plain noise here
     # (1.678e-2 on the H100): only phase 2's per-kernel gates see it.
     check(errs["attn_p_f32"] > LOGITS_TOL, "B=8 step: tolerance passes the p_f32 control")
-    return {name: r["launches"] for name, r in results.items()}
+    # each run's outputs, seconds and launches (the batchers and their caches go)
+    return {name: {k: v for k, v in r.items() if k != "batcher"} for name, r in results.items()}
+
+
+def fast_step_errors(cfg, weights, caches, tok, pos):
+    """A B=8 flash decode step from ``caches`` at ``quality="fast"`` through
+    the kernels, against the plain versions' fast step, and the controls
+    against it: a truncating activation fold, the attention controls."""
+    from tpu_lutvq_torch.models.llama import llama_decode_step
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    window = bucket_window(int(pos.max()) + 1, cfg.max_seq)
+
+    def step(plain):
+        copy = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
+        return llama_decode_step(cfg, weights, tok, copy, pos, window=window, attn="flash",
+                                 quality="fast", plain=plain)[0]
+
+    want, got = step(True), step(False)
+    errs = {"kernel": rel_err(got, want)}
+    with truncating_folds():
+        errs["i8_trunc"] = rel_err(step(True), want)
+    for c in ATTN_CONTROLS:
+        with attention_control(c):
+            errs[f"attn_{c}"] = rel_err(step(True), want)
+    return errs, bool(torch.isfinite(got).all())
+
+
+def phase_tier_runs(device, cfg, weights, batcher_results):
+    """Phase 6: the precision tiers at 7B geometry on phase 3's model.
+    Returns each new kernel's launches on its main path."""
+    from tpu_lutvq_torch.models.llama import init_caches, llama_decode_step, llama_forward
+    from tpu_lutvq_torch.runtime import sequence_logprobs
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    lg, dq = kernel_modules()
+    per_step = 7 * cfg.n_layers  # projections in one forward
+    prompts, _, ids = batcher_prompts(cfg)
+
+    # (a) batcher run (iv): run (i)'s requests at quality="fast"
+    ticks = []
+
+    def watch(b):
+        decode = b._decode
+
+        def counted(*a, **kw):
+            before = dq.DEQUANT_MM_I8_LAUNCHES, dq.DEQUANT_MM_LAUNCHES
+            out = decode(*a, **kw)
+            ticks.append((out.shape[0], dq.DEQUANT_MM_I8_LAUNCHES - before[0],
+                          dq.DEQUANT_MM_LAUNCHES - before[1]))
+            return out
+        b._decode = counted
+
+    serve(cfg, weights, prompts[:N_SLOTS], quality="fast")  # warm-up, as run (i)'s
+    outs, secs, launches, b = serve(cfg, weights, prompts, watch=watch, quality="fast")
+    n_tok = sum(len(o) for o in outs.values())
+    base = batcher_results["i slab auto"]
+    agree = sum(sum(int(t == u) for t, u in zip(o, base["outs"][i]))
+                for i, o in outs.items()) / n_tok
+    print(f"[tiers] (a) batcher run iv slab auto quality=fast: {len(outs)} requests, {n_tok} "
+          f"tokens in {secs:.2f} s, {n_tok / secs:.1f} tok/s delivered (host clock; run i "
+          f"{sum(len(o) for o in base['outs'].values()) / base['secs']:.1f}); {len(ticks)} "
+          f"decode ticks, W8A8 launches per tick {sorted({g for _, g, _ in ticks})}; tokens "
+          f"equal to run i's {agree:.3f}; launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items()))
+    check(sorted(outs) == list(range(len(prompts))), "run iv: requests missing")
+    for i, o in outs.items():
+        check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
+              f"run iv: request {i} malformed")
+    check(len(ticks) > 0 and all(g == per_step * h and c == 0 for h, g, c in ticks),
+          f"run iv: a decode tick missed the W8A8 kernel or took bf16x2: {ticks[:4]}")
+    check(launches["dequant_mm"] == 0, "run iv: the bf16x2 kernel launched")
+    pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
+    errs, finite = fast_step_errors(cfg, weights, b.caches, tok, pos)
+    print(f"[tiers] (a) B={N_SLOTS} flash decode step at quality=fast from run iv's caches, "
+          f"positions {pos.tolist()}: logits rel err vs plain: "
+          + ", ".join(f"{run} {e:.3e}" for run, e in errs.items()))
+    check(finite, "non-finite logits in the fast B=8 step")
+    check(errs["kernel"] <= LOGITS_TOL, f"fast B=8 step logits disagree: {errs}")
+    check(errs["attn_p_f32"] > LOGITS_TOL, "fast B=8 step: tolerance passes the p_f32 control")
+    check(errs["i8_trunc"] > LOGITS_TOL, "fast B=8 step: tolerance passes the truncating fold")
+    result = {"dequant_mm_i8": launches["dequant_mm_i8"]}
+    del b
+
+    # (b) one B=1 decode step through the pairf kernel, against the pair step
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16), generator=ids).to(device)
+    caches = init_caches(cfg, 1, device=device)
+    logits, caches = llama_forward(cfg, weights, prompt, caches, 0,
+                                   window=bucket_window(16, cfg.max_seq))
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+
+    def step(variant):
+        copy = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
+        return llama_decode_step(cfg, weights, tok, copy, 16, variant=variant,
+                                 window=bucket_window(17, cfg.max_seq))[0]
+
+    lg.LUT_GEMV_PAIRF_LAUNCHES = 0
+    y_pairf = step("pairf")
+    result["lut_gemv_pairf"] = lg.LUT_GEMV_PAIRF_LAUNCHES
+    y_pair = step("pair")
+    same = bool(torch.equal(y_pairf, y_pair))
+    print(f"[tiers] (b) B=1 decode step, variant=pairf: {result['lut_gemv_pairf']} pairf "
+          f"launches; logits equal to the pair step's: {same}")
+    check(result["lut_gemv_pairf"] == per_step, "pairf did not serve every projection")
+    check(same and bool(torch.isfinite(y_pairf).all()), "pairf step differs from the pair step")
+
+    # (c) the tiers' cost in model quality, against the f32 oracle
+    tokens = torch.randint(0, cfg.vocab_size, (EVAL_B, EVAL_T), generator=ids).to(device)
+    settings = {"exact": (dict(strategy="auto"), "dequant_mm"),
+                "i8": (dict(strategy="dequant_mm", variant="i8"), "dequant_mm_i8"),
+                "f32": (dict(strategy="dequant_mm", variant="f32"), "dequant_mm_f32")}
+    logp, ppl = {}, {}
+    for name, (kw, kernel) in settings.items():
+        mod, attr = counters()[kernel]
+        setattr(mod, attr, 0)
+        lp, s_lp = timed(lambda: sequence_logprobs(cfg, weights, tokens, **kw))
+        n_launch = getattr(mod, attr)
+        logits, _ = llama_forward(cfg, weights, tokens, init_caches(cfg, EVAL_B, device=device),
+                                  0, **kw)
+        logp[name] = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        ppl[name] = math.exp(-float(lp.mean()))
+        own = logp[name].gather(-1, tokens[:, 1:, None].long())[..., 0]
+        print(f"[tiers] (c) sequence_logprobs B={EVAL_B} T={EVAL_T} {name}: perplexity "
+              f"{ppl[name]:.4f}, {s_lp:.2f} s (host clock), {kernel} launches {n_launch}; "
+              f"max |logprob - the logits' re-run| {float((own - lp).abs().max()):.3e}")
+        check(bool(torch.isfinite(lp).all()) and bool((lp <= 0).all()), f"(c) {name}: logprobs")
+        check(n_launch == per_step, f"(c) {name}: {kernel} did not serve every projection")
+        if name == "f32":
+            result["dequant_mm_f32"] = n_launch
+        del logits
+    p_oracle = logp["f32"].exp()
+    for name in ("exact", "i8"):
+        kl = (p_oracle * (logp["f32"] - logp[name])).sum(-1).flatten()
+        print(f"[tiers] (c) {name} vs the f32 oracle: KL mean {float(kl.mean()):.4e} p95 "
+              f"{float(kl.quantile(0.95)):.4e} nats; perplexity ratio "
+              f"{ppl[name] / ppl['f32']:.6f}")
+    return result
 
 
 def phase_profile(device, cfg, weights):
-    """``--profile``: where batcher run (i)'s time goes.  One run unprofiled
-    and one under torch.profiler (device busy share, kernel launches, device
-    time by kernel), then a B=8 decode step from its caches under each
+    """``--profile``: where the time of batcher runs (i) and (iv) (phase 6,
+    ``quality="fast"``) goes.  Each run once unprofiled and once under
+    torch.profiler (device busy share, kernel launches, device time by
+    kernel), then a B=8 decode step from run (i)'s caches under each
     attention path (host clock, 5 steps each, flash and einsum alternated)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -940,22 +1236,23 @@ def phase_profile(device, cfg, weights):
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
     prompts, _, ids = batcher_prompts(cfg)
-    serve(cfg, weights, prompts[:N_SLOTS])  # warm-up: lazy inits, allocator pools
-    secs = serve(cfg, weights, prompts)[1]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, prof_secs, launches, b = serve(cfg, weights, prompts)
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in on_device) / 1e6
-    print(f"[profile] run (i): {secs:.3f} s unprofiled, {prof_secs:.3f} s profiled; device "
-          f"busy {100 * busy / prof_secs:.1f} % of the profiled wall time ({busy:.3f} s), "
-          f"{sum(e.count for e in on_device)} device launches; counters "
-          + " ".join(f"{k} {v}" for k, v in launches.items()))
-    on_device.sort(key=lambda e: -e.self_device_time_total)
-    for e in on_device[:10]:
-        ms = e.self_device_time_total / 1e3
-        print(f"[profile]   {ms:10.1f} ms {100 * ms / 1e3 / busy:5.1f} % {e.count:7d} calls  "
-              f"{e.key[:100]}")
+    for run, kw in (("iv", dict(quality="fast")), ("i", {})):
+        serve(cfg, weights, prompts[:N_SLOTS], **kw)  # warm-up: lazy inits, allocator pools
+        secs = serve(cfg, weights, prompts, **kw)[1]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, prof_secs, launches, b = serve(cfg, weights, prompts, **kw)
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in on_device) / 1e6
+        print(f"[profile] run ({run}): {secs:.3f} s unprofiled, {prof_secs:.3f} s profiled; "
+              f"device busy {100 * busy / prof_secs:.1f} % of the profiled wall time "
+              f"({busy:.3f} s), {sum(e.count for e in on_device)} device launches; counters "
+              + " ".join(f"{k} {v}" for k, v in launches.items() if v))
+        on_device.sort(key=lambda e: -e.self_device_time_total)
+        for e in on_device[:10]:
+            ms = e.self_device_time_total / 1e3
+            print(f"[profile]   {ms:10.1f} ms {100 * ms / 1e3 / busy:5.1f} % {e.count:7d} "
+                  f"calls  {e.key[:100]}")
 
     pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
     tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
@@ -1178,31 +1475,127 @@ KERNELS = {
         route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:541",
     ),
+    "dequant_mm_i8": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/dequant_mm_i8.cu",
+        replaces="tpu_lutvq/kernels/dequant_mm.py:137",
+        also_replaces=["tpu_lutvq/kernels/dequant_mm.py:188"],
+    ),
+    "dequant_mm_f32": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/dequant_mm_f32.cu",
+        replaces="tpu_lutvq/kernels/dequant_mm.py:388",
+        also_replaces=["tpu_lutvq/kernels/dequant_mm.py:449"],
+    ),
+    "lut_gemv_pairf": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:309",
+    ),
 }
 # the main-path run whose launch counts each kernel's summary reports
 LAUNCHES_FROM = {"flash_decode": "i slab auto", "flash_decode_paged": "ii paged auto",
                  "flash_prefill": "iii slab flash chunked"}
 
 
-def main(profile=False):
+GUARD_PAD = 1 << 16  # bytes of 0xA5 on each side of a guarded buffer
+
+
+class GuardBands:
+    """``torch`` as the kernel modules see it under ``--guard``: ``empty``
+    and ``empty_like`` of a CUDA tensor return a view into a buffer with
+    ``GUARD_PAD`` bytes of 0xA5 on each side; :meth:`check` names every
+    buffer whose bands changed."""
+
+    def __init__(self):
+        self.guards, self.live, self.checked, self.bad = [], 0, 0, []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def _guarded(self, shape, dtype):
+        n_bytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.full((2 * GUARD_PAD + -(-n_bytes // 256) * 256,), 0xA5,
+                         dtype=torch.uint8, device="cuda")
+        caller = sys._getframe(2)
+        self.guards.append((buf, n_bytes, f"{caller.f_code.co_name}:{caller.f_lineno} "
+                                          f"{tuple(shape)} {dtype}"))
+        self.live += buf.numel()
+        if self.live > 2 << 30:
+            self.check("(2 GiB of buffers)")
+        return buf[GUARD_PAD:GUARD_PAD + n_bytes].view(dtype).view(shape)
+
+    def empty(self, *shape, dtype=None, device=None, **kw):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+            shape = tuple(shape[0])
+        if device is None or torch.device(device).type != "cuda" or kw:
+            return torch.empty(shape, dtype=dtype, device=device, **kw)
+        return self._guarded(shape, dtype or torch.get_default_dtype())
+
+    def empty_like(self, t, **kw):
+        if t.device.type != "cuda" or kw:
+            return torch.empty_like(t, **kw)
+        return self._guarded(tuple(t.shape), t.dtype)
+
+    def check(self, tag):
+        torch.cuda.synchronize()
+        if self.guards:
+            changed = torch.stack([
+                (buf[:GUARD_PAD] != 0xA5).any() | (buf[GUARD_PAD + n:] != 0xA5).any()
+                for buf, n, _ in self.guards]).tolist()
+            self.bad += [f"{tag}: {who}" for c, (_, _, who) in zip(changed, self.guards) if c]
+        self.checked += len(self.guards)
+        self.guards, self.live = [], 0
+
+
+def phase_guarded(device):
+    """Phases 2, 3, 4 and 6 with the kernel wrappers' buffers in guard bands."""
+    mods = [importlib.import_module(f"tpu_lutvq_torch.kernels.{m}")
+            for m in ("lut_gemv", "dequant_mm", "flash_decode", "flash_prefill")]
+    bands = GuardBands()
+    for m in mods:
+        m.torch = bands
+    try:
+        for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers):
+            phase(device)
+            bands.check(phase.__name__)
+        cfg, weights = model(device)
+        phase_slice(device, cfg, weights)
+        bands.check("phase_slice")
+        batcher = phase_batcher(device, cfg, weights)
+        bands.check("phase_batcher")
+        phase_tier_runs(device, cfg, weights, batcher)
+        bands.check("phase_tier_runs")
+    finally:
+        for m in mods:
+            m.torch = torch
+    print(f"[guard] {bands.checked} buffers checked, {len(bands.bad)} with a band written")
+    for who in bands.bad:
+        print(f"[guard] written past: {who}")
+    check(not bands.bad, "a kernel wrote outside its buffer")
+
+
+def main(mode=None):
     import tpu_lutvq_torch  # noqa: F401  (fails at once outside the repository)
 
     phase_device()
     device = torch.device("cuda")
     phase_build()
-    if profile:
+    if mode == "--profile":
         phase_profile(device, *model(device))
+        return
+    if mode == "--guard":
+        phase_guarded(device)
         return
     rows = phase_kernels(device)
     rows.update(phase_attention(device))
     for name, rs in phase_tables(device).items():
         rows.setdefault(name, []).extend(rs)
+    rows.update(phase_tiers(device))
     cfg, weights = model(device)
     launches = phase_slice(device, cfg, weights)
-    batcher_launches = phase_batcher(device, cfg, weights)
+    batcher = phase_batcher(device, cfg, weights)
     for name, run in LAUNCHES_FROM.items():
-        launches[name] = batcher_launches[run][name]
-    del weights
+        launches[name] = batcher[run]["launches"][name]
+    launches.update(phase_tier_runs(device, cfg, weights, batcher))
+    del weights, batcher
     torch.cuda.empty_cache()
     launches.update(phase_ann(device))
     summary = []
@@ -1225,7 +1618,7 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    if sys.argv[1:] not in ([], ["--profile"]):
-        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--profile"], ["--guard"]):
+        print("usage: chip_smoke.py [--profile | --guard]", file=sys.stderr)
         sys.exit(2)
-    main(profile=sys.argv[1:] == ["--profile"])
+    main(*sys.argv[1:])

@@ -187,10 +187,10 @@ def test_unported_options_raise(tiny32):
             ContinuousBatcher(tcfg, tw, n_slots=2, **kw)
     with pytest.raises(NotImplementedError, match="stacked"):
         ContinuousBatcher(tcfg, tw, n_slots=2, stacked_kv=True)
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        ContinuousBatcher(tcfg, tw, n_slots=2, quality="fast")
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        make_chunked_prefill(tcfg, quality="fast")
+    with pytest.raises(NotImplementedError, match="stacked_kv"):
+        tg.generate(tcfg, tw, [[1, 2]], 2, stacked_kv=True)
+    with pytest.raises(NotImplementedError, match="stacked"):
+        tl.llama_forward(tcfg, tw, torch.tensor([[1, 2]]), tl.init_caches(tcfg, 1, device="cpu")[0], 0)
     with pytest.raises(ValueError, match="chunk"):
         make_chunked_prefill(tcfg, chunk=0)
     with pytest.raises(ValueError, match="max_seq"):

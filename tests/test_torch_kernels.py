@@ -318,9 +318,15 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_variants_raise():
-    _, tcfg, _, tp = make_params(256, 128, shared=True)
+    """What is still not ported raises: shard, nibble (kernel J) and
+    out_group packs cannot cross into the port, and a variant name the JAX
+    dispatcher does not know is refused."""
+    jcfg, tcfg, jp, tp = make_params(256, 128, shared=True)
     pk = tlut.pack_params(tcfg, tp)
-    with pytest.raises(ValueError, match="not ported"):
-        tlut.lut_gemv(tcfg, pk, torch.zeros(1, 256), variant="pairf")
-    with pytest.raises(NotImplementedError):
-        tdq.dequant_matmul(tcfg, pk, torch.zeros(8, 256), tables="i8")
+    with pytest.raises(ValueError, match="unknown lut_gemv variant"):
+        tlut.lut_gemv(tcfg, pk, torch.zeros(1, 256), variant="nibbles")
+    blocks = jp._replace(codebook=jnp.concatenate([jp.codebook] * 2))  # (out_group, N, K, d)
+    for params, kw in ((jp, dict(shards=2)), (blocks, dict(out_group=2))):
+        jpk = jlut.pack_params(jcfg, params, **kw)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            packed_from_numpy(jpk, "cpu")

@@ -11,7 +11,8 @@ the CUDA device unless a ``device`` argument says otherwise.
                                  attention wrappers, the nvcc build (``_build``)
 - ``tpu_lutvq_torch.models``  — QuantizedLinear, Llama decoder, INT8 KV cache
                                  (slab and paged), attention policy
-- ``tpu_lutvq_torch.runtime`` — ``generate()``, chunked prefill, the batcher
+- ``tpu_lutvq_torch.runtime`` — ``generate()``, chunked prefill, the batcher,
+                                 perplexity (``runtime.eval``)
 - ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package
 - ``tpu_lutvq_torch.ann``     — PQ/RQ ANN search engine: k-means, f32/int8/int16
                                  table scans, refined search, SDC, OPQ

@@ -1,12 +1,18 @@
 // LUT-VQ lookup-accumulate GEMV for Hopper (sm_90a).
 //
-// Replaces tpu_lutvq/kernels/lut_gemv.py::_gemv_kernel_pair (B = 1) and
-// ::_gemv_kernel_bpair (B >= 2).  Both compute
+// Replaces tpu_lutvq/kernels/lut_gemv.py::_gemv_kernel_pair (B = 1),
+// ::_gemv_kernel_bpair (B >= 2) and ::_gemv_kernel_pair_fused ("pairf",
+// B = 1).  All compute
 //     y[b, j] = s[j] * sum_g bf16(lut[b, g, codes_t[g, j]])     (f32 sum)
 // and differ only in how the TPU packs bf16 entries into 32-bit words for
-// its 128-lane gather.  Hopper gathers from shared memory at any width, so
-// one kernel, templated on the padded token count BP in {1, 2, 4, 8},
-// serves every batch from 1 to 8.
+// its 128-lane gather (pairf packs them inside the kernel).  Hopper gathers
+// from shared memory at any width, so one kernel, templated on the padded
+// token count BP in {1, 2, 4, 8}, serves every batch from 1 to 8.  For
+// pairf it reads the f32 table and rounds each entry to bf16 (round to
+// nearest even, as torch's cast) while staging it in shared memory: the
+// wrapper's separate cast pass and its bf16 copy in HBM go, and the
+// staged table, the inner loop and the split order stay A's, so pairf
+// gives A's output bit for bit.
 //
 // What bounds it on the H100: the uint8 codes, streamed once from HBM
 // (G * d_out bytes: 4 MiB for a 4096x4096 layer, 11 MiB for 4096->11008).
@@ -23,6 +29,7 @@
 //     is deterministic (no atomics).
 // Left for later: double-buffered staging, wider column tiles at large d_out.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,12 +65,18 @@ __device__ __forceinline__ void add_entries(float (&acc)[BP], const uint16_t* p)
   }
 }
 
-// lut:     (G, KP, BP) bf16 bits, token fastest
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// lut:     (G, KP, BP) token fastest: bf16 bits (Entry = uint16_t) or f32
+//          (Entry = float, rounded to bf16 as it is staged)
 // codes:   (G_pad, d_out_pad) uint8, n-major groups
 // partial: (n_splits, BP, d_out_pad) f32
-template <int BP>
+template <int BP, typename Entry>
 __global__ void __launch_bounds__(kThreads)
-lut_gemv_partial(const uint16_t* __restrict__ lut, const uint8_t* __restrict__ codes,
+lut_gemv_partial(const Entry* __restrict__ lut, const uint8_t* __restrict__ codes,
                  float* __restrict__ partial, int G, int KP, int d_out_pad,
                  int g_per_split) {
   __shared__ __align__(16) uint16_t tab[kStageBytes / 2];
@@ -82,10 +95,22 @@ lut_gemv_partial(const uint16_t* __restrict__ lut, const uint8_t* __restrict__ c
 
   for (int s0 = g_begin; s0 < g_end; s0 += stage_groups) {
     const int ng = min(stage_groups, g_end - s0);
-    const uint4* src = reinterpret_cast<const uint4*>(lut + static_cast<size_t>(s0) * row_elems);
-    uint4* dst = reinterpret_cast<uint4*>(tab);
-    const int n16 = ng * row_elems / 8;             // 8 bf16 per 16 bytes
-    for (int i = threadIdx.x; i < n16; i += kThreads) dst[i] = src[i];
+    if constexpr (sizeof(Entry) == 4) {
+      const float4* src =
+          reinterpret_cast<const float4*>(lut + static_cast<size_t>(s0) * row_elems);
+      uint2* dst = reinterpret_cast<uint2*>(tab);
+      const int n4 = ng * row_elems / 4;            // 4 f32 in, 4 bf16 out
+      for (int i = threadIdx.x; i < n4; i += kThreads) {
+        const float4 v = src[i];
+        dst[i] = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+      }
+    } else {
+      const uint4* src =
+          reinterpret_cast<const uint4*>(lut + static_cast<size_t>(s0) * row_elems);
+      uint4* dst = reinterpret_cast<uint4*>(tab);
+      const int n16 = ng * row_elems / 8;           // 8 bf16 per 16 bytes
+      for (int i = threadIdx.x; i < n16; i += kThreads) dst[i] = src[i];
+    }
     __syncthreads();
     if (active) {
       const uint8_t* crow = codes + static_cast<size_t>(s0) * d_out_pad + col0;
@@ -127,23 +152,26 @@ __global__ void lut_gemv_reduce(const float* __restrict__ partial,
   out[idx] = s;
 }
 
-template <int BP>
+template <int BP, typename Entry = uint16_t>
 void launch_partial(const void* lut, const void* codes, void* ws, int G, int KP,
                     int d_out_pad, int g_per_split, int n_splits, cudaStream_t stream) {
   dim3 grid((d_out_pad + kTileCols - 1) / kTileCols, n_splits);
-  lut_gemv_partial<BP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(lut), static_cast<const uint8_t*>(codes),
+  lut_gemv_partial<BP, Entry><<<grid, kThreads, 0, stream>>>(
+      static_cast<const Entry*>(lut), static_cast<const uint8_t*>(codes),
       static_cast<float*>(ws), G, KP, d_out_pad, g_per_split);
 }
 
 }  // namespace
 
+// f32_entries: the table is f32 (pairf, BP = 1 only), else bf16
 extern "C" int lutvq_lut_gemv(const void* lut, const void* codes, const void* scales,
                               void* ws, void* out, int B, int BP, int G, int KP,
                               int d_out, int d_out_pad, int g_per_split, int n_splits,
-                              void* stream_ptr) {
+                              int f32_entries, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  switch (BP) {
+  if (f32_entries && BP != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (f32_entries ? 0 : BP) {
+    case 0: launch_partial<1, float>(lut, codes, ws, G, KP, d_out_pad, g_per_split, n_splits, stream); break;
     case 1: launch_partial<1>(lut, codes, ws, G, KP, d_out_pad, g_per_split, n_splits, stream); break;
     case 2: launch_partial<2>(lut, codes, ws, G, KP, d_out_pad, g_per_split, n_splits, stream); break;
     case 4: launch_partial<4>(lut, codes, ws, G, KP, d_out_pad, g_per_split, n_splits, stream); break;

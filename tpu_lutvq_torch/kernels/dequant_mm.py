@@ -1,37 +1,66 @@
-"""Fused dequant-matmul (counterpart of ``tpu_lutvq.kernels.dequant_mm``,
-``tables="bf16x2"``): ``Y = X · Wᵀ · diag(s)`` with W rebuilt from codes and
-the bf16 codebook, never written to device memory.
+"""Fused dequant-matmul (counterpart of ``tpu_lutvq.kernels.dequant_mm``):
+``Y = X · Wᵀ · diag(s)`` with W rebuilt from codes and a codebook, never
+written to device memory, at three table precisions (``tables=``), each a
+hand-written CUDA kernel with its plain PyTorch version beside it:
 
-Rounding points, as in the JAX kernel (``dequant_mm.py:264-277, 726-734``):
-x and every codebook entry are rounded to bf16, each codebook's entry is
-contracted against x on its own, and everything sums in f32 — the sum of
-the N codebook entries is never rounded to bf16.
+- ``bf16x2`` (serving, ``quality="exact"``): x and every codebook entry
+  rounded to bf16, each codebook's entry contracted against x on its own,
+  everything summed in f32 — the sum of the N codebook entries is never
+  rounded to bf16 (``dequant_mm.py:264-277, 726-734``).  Wrapper
+  :func:`dequant_mm_bf16x2` (``csrc/dequant_mm.cu``, counter
+  ``DEQUANT_MM_LAUNCHES``), plain :func:`dequant_mm_plain`.
+- ``i8`` (W8A8, ``quality="fast"``): codebook words quantized to int8 per
+  (word, group), those row scales folded into x, x quantized per token,
+  an exact integer sum, then the token's and the output's scales
+  (``dequant_mm.py:94-134, 602-719``).  Wrapper :func:`dequant_mm_i8`
+  (``csrc/dequant_mm_i8.cu``, ``DEQUANT_MM_I8_LAUNCHES``), plain
+  :func:`dequant_mm_i8_plain`; :func:`quantize_tables_i8` and
+  :func:`fold_activations_i8` prepare their inputs.
+- ``f32`` (the oracle; every odd ``d_subvec``): x and the codebook in f32,
+  the N entries summed in f32, an f32 contraction (``dequant_mm.py:830-924``).
+  Wrapper :func:`dequant_mm_f32` (``csrc/dequant_mm_f32.cu``,
+  ``DEQUANT_MM_F32_LAUNCHES``), plain :func:`dequant_mm_f32_plain`.
 
-:func:`dequant_mm_bf16x2` is the kernel's wrapper: a CUDA tensor launches
-``csrc/dequant_mm.cu`` (counted in ``DEQUANT_MM_LAUNCHES``) or raises; a CPU
-tensor takes :func:`dequant_mm_plain`, the plain PyTorch version.
+A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
+raises; a CPU tensor takes the plain version.  :func:`dequant_matmul`
+picks the tables and adds the zero points.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from tpu_lutvq_torch.core.config import VQConfig
 from tpu_lutvq_torch.core.params import broadcast_codebook
 from tpu_lutvq_torch.kernels import _build
-from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, _apply_zero_points
+from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, _apply_zero_points, _round_up
 
-DEQUANT_MM_LAUNCHES = 0  # kernel launches since the last reset (see module doc)
+# kernel launches since the last reset (see module doc)
+DEQUANT_MM_LAUNCHES = 0  # bf16x2 tables
+DEQUANT_MM_I8_LAUNCHES = 0
+DEQUANT_MM_F32_LAUNCHES = 0
 
+TABLES = ("bf16x2", "i8", "f32")
 _KERNEL_D_SUBVEC = 8  # csrc/dequant_mm.cu rebuilds 16-byte (8 × bf16) rows
+_I8_KERNEL_D_SUBVEC = (4, 8, 16)  # csrc/dequant_mm_i8.cu copies 4-, 8- or 16-byte rows
+_I8_KERNEL_STEP = 64  # csrc/dequant_mm_i8.cu kBK: int8 inputs per k-step
+_I8_TILE = 64  # csrc/dequant_mm_i8.cu kBM = kBN: rows and columns per block
+# d_in is split across blocks until the grid holds this many blocks per SM
+# (the kernel's 20 KiB of shared memory and 128 threads fit ~7 on an SM),
+# each split at least _I8_MIN_SPLIT_STEPS k-steps long
+_I8_BLOCKS_PER_SM = 6
+_I8_MIN_SPLIT_STEPS = 4
 _KERNEL_MAX_CODEBOOKS = 2
 
 
-def dequant_weight(cfg: VQConfig, packed: PackedVQ) -> torch.Tensor:
-    """The plain version's weight, ``W = Σ_n float(bf16(cb_n))`` summed in
-    f32, without scales: ``(d_out, d_in)`` float32."""
+def dequant_weight(cfg: VQConfig, packed: PackedVQ, round_bf16: bool = True) -> torch.Tensor:
+    """The plain versions' weight, ``W = Σ_n float(bf16(cb_n))`` summed in
+    f32 in codebook order (``round_bf16=False``: ``Σ_n cb_n`` in f32),
+    without scales: ``(d_out, d_in)`` float32."""
     m, n, d_out = cfg.n_subvec, cfg.n_codebook, packed.d_out
-    cb = broadcast_codebook(cfg, packed.codebook).to(torch.bfloat16).float()
+    cb = broadcast_codebook(cfg, packed.codebook)
+    cb = cb.to(torch.bfloat16).float() if round_bf16 else cb.float()
     codes = packed.codes_t[: cfg.n_groups, :d_out].long().reshape(n, m, d_out)
     m_idx = torch.arange(m, device=codes.device)[:, None]
     w = cb[m_idx, 0, codes[0]]  # (M, d_out, d)
@@ -40,13 +69,24 @@ def dequant_weight(cfg: VQConfig, packed: PackedVQ) -> torch.Tensor:
     return w.permute(1, 0, 2).reshape(d_out, cfg.d_in)
 
 
+def _scaled(y: torch.Tensor, packed: PackedVQ) -> torch.Tensor:
+    return y if packed.scales is None else y * packed.scales[:, : packed.d_out]
+
+
+def _check_codes(cfg: VQConfig, packed: PackedVQ) -> tuple[int, int]:
+    g_pad, d_out_pad = packed.codes_t.shape
+    if g_pad < cfg.n_groups or d_out_pad < packed.d_out:
+        raise ValueError(f"codes_t {tuple(packed.codes_t.shape)} does not cover {cfg}")
+    return g_pad, d_out_pad
+
+
+# ---- bf16x2 tables -------------------------------------------------------------
+
+
 def dequant_mm_plain(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
     """Plain version: ``float(bf16(x)) @ Wᵀ`` in f32 with :func:`dequant_weight`,
     times the scales.  ``(B, d_in) → (B, d_out)``."""
-    y = x.to(torch.bfloat16).float() @ dequant_weight(cfg, packed).T
-    if packed.scales is not None:
-        y = y * packed.scales[:, : packed.d_out]
-    return y
+    return _scaled(x.to(torch.bfloat16).float() @ dequant_weight(cfg, packed).T, packed)
 
 
 def dequant_mm_bf16x2(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
@@ -64,9 +104,7 @@ def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
             f"dequant_mm kernel takes d_subvec={_KERNEL_D_SUBVEC} and ≤ "
             f"{_KERNEL_MAX_CODEBOOKS} codebooks; got {cfg}"
         )
-    g_pad, d_out_pad = packed.codes_t.shape
-    if g_pad < cfg.n_groups or d_out_pad < packed.d_out:
-        raise ValueError(f"codes_t {tuple(packed.codes_t.shape)} does not cover {cfg}")
+    _, d_out_pad = _check_codes(cfg, packed)
     r = x.shape[0]
     out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x.device)
     if r == 0:
@@ -90,6 +128,168 @@ def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---- i8 tables (W8A8) ------------------------------------------------------------
+
+
+def quantize_tables_i8(cfg: VQConfig, codebook: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The codebook words quantized to int8 per (word w, group g) over K, as
+    ``build_gather_tables_i8`` does (``dequant_mm.py:113-118``):
+    ``s = max(max|t|/127, 1e-12)``, ``q = clip(round(t/s), -127, 127)``.
+
+    Works on the compact ``(M_cb, N, K, d)`` codebook: every group of one
+    codebook n of a shared ``(1, N, K, d)`` codebook holds the same rows, so
+    quantizing it once equals quantizing each group.  Returns ``q (M_cb, N,
+    K, d)`` int8 and ``s (M_cb, N, d)`` float32; group ``g = n·M + m`` reads
+    ``s[m or 0, n, w]``."""
+    t = codebook.float()
+    s = torch.clamp_min(t.abs().amax(dim=2) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(t / s[:, :, None, :]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def fold_activations_i8(
+    cfg: VQConfig, x: torch.Tensor, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The W8A8 activation fold (``dequant_mm.py:644-656``): x duplicated per
+    codebook, each copy scaled by its table rows' scales,
+    ``x4[b, n, m, w] = x[b, m·d + w] · s[m, n, w]``; then per token
+    ``xs = max(max|x4|/127, 1e-12)`` and ``x_i8 = clip(round(x4/xs), -127,
+    127)`` (``torch.round`` rounds half to even, as ``jnp.round``).  The
+    columns are JAX's ``(q, nn, mm, j)`` ones in ``(n, m, w)`` order.
+    Returns ``x_i8 (B, N, M, d)`` int8 and ``xs (B,)`` float32."""
+    b = x.shape[0]
+    x4 = x.float().reshape(b, 1, cfg.n_subvec, cfg.d_subvec) * s.permute(1, 0, 2)[None]
+    xs = torch.clamp_min(x4.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
+    x_i8 = torch.clamp(torch.round(x4 / xs[:, None, None, None]), -127, 127)
+    return x_i8.to(torch.int8), xs
+
+
+def weight_i8(cfg: VQConfig, packed: PackedVQ, q: torch.Tensor) -> torch.Tensor:
+    """The int8 weight the W8A8 kernel rebuilds on chip: ``(d_out, N, M, d)``,
+    ``w[j, n, m] = q[m, n, code(n·M + m, j)]``."""
+    m, n, d_out = cfg.n_subvec, cfg.n_codebook, packed.d_out
+    codes = packed.codes_t[: cfg.n_groups, :d_out].long().reshape(n, m, d_out)
+    n_idx = torch.arange(n, device=codes.device)[:, None, None]
+    m_idx = torch.arange(m, device=codes.device)[None, :, None]
+    qb = q.expand((m,) + tuple(q.shape[1:])) if q.shape[0] == 1 else q
+    return qb[m_idx, n_idx, codes].permute(2, 0, 1, 3)  # (N, M, d_out, d) → (d_out, N, M, d)
+
+
+def dequant_mm_i8_plain(
+    cfg: VQConfig, packed: PackedVQ, x_i8: torch.Tensor, xs: torch.Tensor, q: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of the W8A8 kernel: ``float(Σ x_i8 · w_i8) · xs[b] · s[j]``.
+    Every product and partial sum is an integer below 2^53, so the f64
+    matmul (the card has no integer one) is exact in any order: the int32
+    sum of the JAX kernel and of ours, cast once."""
+    w = weight_i8(cfg, packed, q).reshape(packed.d_out, -1)
+    acc = x_i8.reshape(x_i8.shape[0], -1).double() @ w.double().T
+    return _scaled(acc.float() * xs[:, None], packed)
+
+
+def dequant_mm_i8(
+    cfg: VQConfig, packed: PackedVQ, x_i8: torch.Tensor, xs: torch.Tensor, q: torch.Tensor
+) -> torch.Tensor:
+    """The W8A8 kernel's wrapper: plain version for a CPU tensor, the CUDA
+    kernel for a CUDA tensor.  Inputs from :func:`quantize_tables_i8` and
+    :func:`fold_activations_i8`."""
+    if x_i8.device.type == "cpu":
+        return dequant_mm_i8_plain(cfg, packed, x_i8, xs, q)
+    return _launch_i8(cfg, packed, x_i8, xs, q)
+
+
+def _launch_i8(cfg, packed, x_i8, xs, q):
+    global DEQUANT_MM_I8_LAUNCHES
+    d, m = cfg.d_subvec, cfg.n_subvec
+    if d not in _I8_KERNEL_D_SUBVEC or cfg.n_codebook > _KERNEL_MAX_CODEBOOKS:
+        raise ValueError(
+            f"dequant_mm_i8 kernel takes d_subvec in {_I8_KERNEL_D_SUBVEC} and ≤ "
+            f"{_KERNEL_MAX_CODEBOOKS} codebooks; got {cfg}"
+        )
+    _, d_out_pad = _check_codes(cfg, packed)
+    r = x_i8.shape[0]
+    out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x_i8.device)
+    if r == 0:
+        return out
+    # subvectors padded with zeros to whole k-steps: aligned 16-byte loads
+    m_step = _I8_KERNEL_STEP // d
+    mp = _round_up(m, m_step)
+    xq = F.pad(x_i8, (0, 0, 0, mp - m)) if mp > m else x_i8
+    xq = xq.contiguous()
+    xs = xs.contiguous()
+    q = q.contiguous()
+    _build.require_cuda_tensor(xq, "x_i8", torch.int8)
+    _build.require_cuda_tensor(xs, "xs", torch.float32)
+    _build.require_cuda_tensor(q, "q", torch.int8)
+    _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
+    if packed.scales is not None:
+        _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
+    steps = mp // m_step
+    tiles = -(-packed.d_out // _I8_TILE) * -(-r // _I8_TILE)
+    sms = torch.cuda.get_device_properties(x_i8.device).multi_processor_count
+    n_splits = max(1, min(-(-_I8_BLOCKS_PER_SM * sms // tiles), steps // _I8_MIN_SPLIT_STEPS))
+    split_steps = -(-steps // n_splits)
+    n_splits = -(-steps // split_steps)
+    ws = None
+    if n_splits > 1:
+        ws = torch.empty((r, packed.d_out), dtype=torch.int32, device=x_i8.device)
+    lib = _build.library()
+    err = lib.lutvq_dequant_mm_i8(
+        xq.data_ptr(), xs.data_ptr(), packed.codes_t.data_ptr(), q.data_ptr(),
+        None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        r, m, mp, cfg.n_codebook, cfg.n_cluster, d, int(q.shape[0] == 1),
+        packed.d_out, d_out_pad, split_steps * m_step, n_splits, _build.stream_ptr(x_i8),
+    )
+    _build.check(lib, err, "dequant_mm_i8")
+    DEQUANT_MM_I8_LAUNCHES += 1
+    return out
+
+
+# ---- f32 tables (the oracle) ---------------------------------------------------
+
+
+def dequant_mm_f32_plain(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32-table kernel: ``x @ Wᵀ`` in f32 with the
+    unrounded :func:`dequant_weight`, times the scales (a matmul on the card
+    must run with TF32 off to stay the oracle)."""
+    return _scaled(x.float() @ dequant_weight(cfg, packed, round_bf16=False).T, packed)
+
+
+def dequant_mm_f32(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
+    """The f32-table kernel's wrapper: plain version for a CPU tensor, the
+    CUDA kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return dequant_mm_f32_plain(cfg, packed, x)
+    return _launch_f32(cfg, packed, x)
+
+
+def _launch_f32(cfg, packed, x):
+    global DEQUANT_MM_F32_LAUNCHES
+    _, d_out_pad = _check_codes(cfg, packed)
+    r = x.shape[0]
+    out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x.device)
+    if r == 0:
+        return out
+    xf = x.float().contiguous()
+    cb = packed.codebook.float().contiguous()  # (M_cb, N, K, d)
+    _build.require_cuda_tensor(xf, "x", torch.float32)
+    _build.require_cuda_tensor(cb, "codebook", torch.float32)
+    _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
+    if packed.scales is not None:
+        _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
+    lib = _build.library()
+    err = lib.lutvq_dequant_mm_f32(
+        xf.data_ptr(), packed.codes_t.data_ptr(), cb.data_ptr(),
+        None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
+        r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster, cfg.d_subvec,
+        int(cb.shape[0] == 1), packed.d_out, d_out_pad, _build.stream_ptr(x),
+    )
+    _build.check(lib, err, "dequant_mm_f32")
+    DEQUANT_MM_F32_LAUNCHES += 1
+    return out
+
+
 def dequant_matmul(
     cfg: VQConfig,
     packed: PackedVQ,
@@ -100,13 +300,23 @@ def dequant_matmul(
 ) -> torch.Tensor:
     """Batched fused dequant-matmul: ``(B, d_in) → (B, d_out)`` float32.
 
-    Only the serving tables (``bf16x2``) are ported; ``plain=True`` runs the
-    plain version on any device, for comparison with the kernel."""
-    if tables != "bf16x2":
-        raise NotImplementedError(f"dequant_matmul tables={tables!r} is not ported")
+    ``tables`` is ``"bf16x2"`` (serving), ``"i8"`` (W8A8) or ``"f32"``
+    (oracle); odd ``d_subvec``, and ``"i8"`` with ``d_subvec % 4``, take the
+    f32 tables, as in the JAX package (``dequant_mm.py:575-576``).  The
+    tables derive from the packed codebook at call time.  ``plain=True``
+    runs the plain versions on any device, for comparison with the kernels."""
+    if tables not in TABLES:
+        raise ValueError(f"unknown dequant_matmul tables {tables!r} ({'|'.join(TABLES)})")
     if cfg.n_cluster > 256:
         raise ValueError("dequant_matmul supports K ≤ 256")
-    if cfg.d_subvec % 2:
-        raise NotImplementedError("odd d_subvec needs the f32 tables, not ported")
-    y = dequant_mm_plain(cfg, packed, x) if plain else dequant_mm_bf16x2(cfg, packed, x)
+    if cfg.d_subvec % 2 or (tables == "i8" and cfg.d_subvec % 4):
+        tables = "f32"
+    if tables == "i8":
+        q, s = quantize_tables_i8(cfg, packed.codebook)
+        x_i8, xs = fold_activations_i8(cfg, x, s)
+        y = (dequant_mm_i8_plain if plain else dequant_mm_i8)(cfg, packed, x_i8, xs, q)
+    elif tables == "f32":
+        y = (dequant_mm_f32_plain if plain else dequant_mm_f32)(cfg, packed, x)
+    else:
+        y = dequant_mm_plain(cfg, packed, x) if plain else dequant_mm_bf16x2(cfg, packed, x)
     return _apply_zero_points(y, packed, x)

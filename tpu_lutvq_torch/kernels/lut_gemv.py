@@ -7,6 +7,9 @@ flavours of table, each a hand-written CUDA kernel for 1 to
 - ``pair``/``bpair`` (B=1 / B≥2): bf16 entries, f32 sum —
   ``csrc/lut_gemv.cu``, wrapper :func:`lut_lookup`, counter
   ``LUT_GEMV_LAUNCHES``;
+- ``pairf`` (B=1): ``pair`` with the f32 table rounded to bf16 inside the
+  kernel — the same source, wrapper :func:`lut_lookup_pairf`, counter
+  ``LUT_GEMV_PAIRF_LAUNCHES``;
 - ``f32``: f32 entries, f32 sum — ``csrc/lut_scan.cu``, wrapper
   :func:`lut_lookup_table`, counter ``LUT_GEMV_F32_LAUNCHES``;
 - ``i8``/``i16``: per-token range-quantized int8/int16 entries, exact
@@ -43,6 +46,7 @@ DEFAULT_BLOCK_J = 1024  # the JAX tiling's output block; sets the padding rule
 MAX_LUT_BATCH = 8  # widest token tile of the CUDA kernel
 # kernel launches since the last reset (see module doc)
 LUT_GEMV_LAUNCHES = 0  # bf16 tables (pair, bpair)
+LUT_GEMV_PAIRF_LAUNCHES = 0  # f32 tables rounded to bf16 in the kernel
 LUT_GEMV_F32_LAUNCHES = 0
 LUT_GEMV_I8_LAUNCHES = 0
 LUT_GEMV_I16_LAUNCHES = 0
@@ -58,7 +62,7 @@ _SCAN_KINDS = {
     torch.int8: (1, "LUT_GEMV_I8_LAUNCHES"),
     torch.int16: (2, "LUT_GEMV_I16_LAUNCHES"),
 }
-VARIANTS = ("auto", "pair", "bpair", "f32", "i8", "i16")
+VARIANTS = ("auto", "pair", "pairf", "bpair", "f32", "i8", "i16")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -117,13 +121,14 @@ def pack_params(cfg: VQConfig, params: VQParams) -> PackedVQ:
 
 
 def resolve_variant(variant: str, *, batch: int, k: int) -> str:
-    """Resolve "auto" as the JAX package does: ``pair`` at B=1 (``f32`` when
-    K ≤ 128, where there are no K halves to pack), ``bpair`` at B ≥ 2."""
+    """Resolve "auto" as the JAX package does (``lut_gemv.py:239-247``):
+    ``pair`` at B=1, ``bpair`` at B ≥ 2; ``pair`` and ``pairf`` at K ≤ 128,
+    where there are no K halves to pack, become ``f32``."""
     if variant not in VARIANTS:
-        raise ValueError(f"lut_gemv variant {variant!r} is not ported ({'|'.join(VARIANTS)})")
+        raise ValueError(f"unknown lut_gemv variant {variant!r} ({'|'.join(VARIANTS)})")
     if variant == "auto":
         variant = ("pair" if k > LANE else "f32") if batch == 1 else "bpair"
-    if variant == "pair" and k <= LANE:
+    if variant in ("pair", "pairf") and k <= LANE:
         return "f32"
     return variant
 
@@ -161,6 +166,21 @@ def lut_lookup(
     return _launch(lut, codes_t, scales, d_out)
 
 
+def lut_lookup_pairf(
+    lut: torch.Tensor,
+    codes_t: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    d_out: int,
+) -> torch.Tensor:
+    """The ``pairf`` wrapper (one token's f32 table, rounded to bf16 inside
+    the kernel): plain version for a CPU tensor — :func:`lut_lookup_plain`,
+    ``pair``'s, since both sum the same bf16 entries — the CUDA kernel for
+    a CUDA tensor."""
+    if lut.device.type == "cpu":
+        return lut_lookup_plain(lut, codes_t, scales, d_out)
+    return _launch_pairf(lut, codes_t, scales, d_out)
+
+
 def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
     """What both lookup kernels check and take: the table in (G, Kp, token)
     layout, tokens padded to the kernel's tile, so that one load fetches
@@ -176,7 +196,10 @@ def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
     if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
         raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
     bp = next(t for t in _TOKEN_TILES if t >= b)
-    tab = F.pad(lut.permute(1, 2, 0), (0, bp - b)).contiguous()
+    tab = lut.permute(1, 2, 0)  # at B=1 already (G, Kp, 1) in memory: no copy
+    if bp > b:
+        tab = F.pad(tab, (0, bp - b))
+    tab = tab.contiguous()
     _build.require_cuda_tensor(tab, "lut", lut.dtype)
     _build.require_cuda_tensor(codes_t, "codes_t", torch.uint8)
     if scales is not None:
@@ -189,11 +212,29 @@ def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
 
 def _launch(lut, codes_t, scales, d_out):
     global LUT_GEMV_LAUNCHES
+    # bf16: the rounding point of the JAX pair packers
+    out = _run_lut_gemv(lut.to(torch.bfloat16), codes_t, scales, d_out)
+    LUT_GEMV_LAUNCHES += 1
+    return out
+
+
+def _launch_pairf(lut, codes_t, scales, d_out):
+    global LUT_GEMV_PAIRF_LAUNCHES
+    if lut.shape[0] != 1 or lut.dtype != torch.float32:
+        raise ValueError(f"pairf kernel takes one token's f32 table, got "
+                         f"{tuple(lut.shape)} {lut.dtype}")
+    out = _run_lut_gemv(lut, codes_t, scales, d_out)
+    LUT_GEMV_PAIRF_LAUNCHES += 1
+    return out
+
+
+def _run_lut_gemv(lut, codes_t, scales, d_out):
+    """``csrc/lut_gemv.cu`` over a bf16 table, or an f32 one (``pairf``)
+    that the kernel rounds to bf16 as it stages it."""
     b, g, kp = lut.shape
     d_out_pad = codes_t.shape[1]
-    # bf16: the rounding point of the JAX pair packers
     tab, bp, _, _, g_per_split, n_splits = _prepare(
-        lut.to(torch.bfloat16), codes_t, scales, d_out, _TILE_COLS, "lut_gemv")
+        lut, codes_t, scales, d_out, _TILE_COLS, "lut_gemv")
     ws = torch.empty((n_splits, bp, d_out_pad), dtype=torch.float32, device=lut.device)
     out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
     lib = _build.library()
@@ -202,10 +243,9 @@ def _launch(lut, codes_t, scales, d_out):
         None if scales is None else scales.data_ptr(),
         ws.data_ptr(), out.data_ptr(),
         b, bp, g, kp, d_out, d_out_pad, g_per_split, n_splits,
-        _build.stream_ptr(lut),
+        int(lut.dtype == torch.float32), _build.stream_ptr(lut),
     )
     _build.check(lib, err, "lut_gemv")
-    LUT_GEMV_LAUNCHES += 1
     return out
 
 
@@ -278,6 +318,10 @@ def _lookup(variant: str, lut: torch.Tensor, packed: PackedVQ, plain: bool) -> t
     """One chunk of ≤ ``MAX_LUT_BATCH`` tokens' f32 tables through the
     lookup of a resolved ``variant`` (``_lut_gemv_packed``'s dispatch)."""
     args = (packed.codes_t, packed.scales, packed.d_out)
+    if variant == "pairf":
+        if lut.shape[0] != 1:
+            raise ValueError("pairf is the B=1 in-kernel-pack variant")
+        return (lut_lookup_plain if plain else lut_lookup_pairf)(lut, *args)
     if variant in ("i8", "i16"):
         quantize = quantize_lut_int8 if variant == "i8" else quantize_lut_int16
         lut_q, lut_scale = quantize(lut, axis=(1, 2))  # per token

@@ -55,14 +55,20 @@ class QuantizedLinear(NamedTuple):
         *,
         strategy: str = "auto",
         variant: str = "auto",
+        quality: str = "exact",
         plain: bool = False,
     ) -> torch.Tensor:
         """x: ``(..., d_in)`` → ``(..., d_out)`` float32.
 
-        ``variant`` picks the lookup flavour under ``lut_gemv`` ("auto" → the
-        bf16 pair tables; "f32" → exact f32 tables; "i8"/"i16" → per-token
-        int8/int16 tables with integer sums).  ``plain=True`` runs the
-        kernels' plain versions on any device (reference runs only)."""
+        ``variant`` picks the compute flavour on both kernel strategies, as
+        the JAX layer routes it (``linear.py:185-193``): under ``lut_gemv``
+        the lookup ("auto" → the bf16 pair tables; "pairf" → ``pair`` packed
+        in the kernel; "f32" → exact f32 tables; "i8"/"i16" → per-token
+        int8/int16 tables with integer sums); under ``dequant_mm`` the table
+        precision, "f32" (oracle) or "i8" (W8A8), any other variant leaving
+        it to ``quality``: "exact" → the bf16x2 tables, "fast" → the W8A8
+        tables.  ``plain=True`` runs the kernels' plain versions on any
+        device (reference runs only)."""
         lead = x.shape[:-1]
         xb = x.reshape(-1, x.shape[-1])
         if strategy == "auto":
@@ -70,11 +76,11 @@ class QuantizedLinear(NamedTuple):
         if strategy == "lut_gemv":
             y = lut_gemv(cfg, self.packed, xb, variant=variant, plain=plain)
         elif strategy == "dequant_mm":
-            if variant not in ("auto", "bf16x2"):
-                raise NotImplementedError(
-                    f"dequant_mm variant {variant!r} is not ported (bf16x2 tables only)"
-                )
-            y = dequant_matmul(cfg, self.packed, xb, plain=plain)
+            if variant in ("f32", "i8"):
+                tables = variant
+            else:
+                tables = "i8" if quality == "fast" else "bf16x2"
+            y = dequant_matmul(cfg, self.packed, xb, tables=tables, plain=plain)
         elif strategy == "dense_bf16":
             from tpu_lutvq_torch.core.golden import dequantize
 

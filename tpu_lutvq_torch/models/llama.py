@@ -291,6 +291,7 @@ def llama_forward(
     window: Optional[int] = None,
     attn: str = "xla",
     variant: str = "auto",
+    quality: str = "exact",
     logits_mode: str = "all",  # "all" | "last" | "index"
     logits_idx: Optional[torch.Tensor] = None,  # (B,), logits_mode="index"
     plain: bool = False,
@@ -301,8 +302,11 @@ def llama_forward(
     ``KVCache`` or paged ``PagedKVCache`` (decode only, T=1); the caches are
     updated in place and returned.  ``window`` bounds the cache prefix
     attention reads; ``attn`` is "xla" (einsum), "flash" (the flash
-    kernels) or "auto" (``resolve_attn``).  ``plain=True`` runs every
-    kernel's plain version instead (a reference run on the card).
+    kernels) or "auto" (``resolve_attn``).  ``variant`` and ``quality``
+    ("exact" | "fast", the serving precision budget: "fast" serves the
+    ``dequant_mm`` projections with the W8A8 tables) go to every projection
+    (``QuantizedLinear.apply``).  ``plain=True`` runs every kernel's plain
+    version instead (a reference run on the card).
 
     Returns (logits (B, T', vocab) float32, caches), T' = T for
     ``logits_mode="all"`` and 1 otherwise.
@@ -318,7 +322,7 @@ def llama_forward(
         pos_vec = torch.full((b,), cache_pos, dtype=torch.int32, device=device)
     else:
         pos_vec = cache_pos = pos.to(device=device, dtype=torch.int32)
-    kw = dict(strategy=strategy, variant=variant, plain=plain)
+    kw = dict(strategy=strategy, variant=variant, quality=quality, plain=plain)
     x = weights.embed[tokens.to(device).long()].float()
     new_caches = []
     for lw, cache in zip(weights.layers, caches):

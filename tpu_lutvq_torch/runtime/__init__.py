@@ -1,4 +1,5 @@
-"""Decode loop, chunked prefill and the continuous batcher."""
+"""Decode loop, chunked prefill, the continuous batcher and perplexity
+scoring."""
 
 from tpu_lutvq_torch.runtime.generate import (  # noqa: F401
     GenerationResult,
@@ -6,3 +7,4 @@ from tpu_lutvq_torch.runtime.generate import (  # noqa: F401
     make_chunked_prefill,
 )
 from tpu_lutvq_torch.runtime.batching import ContinuousBatcher, Request  # noqa: F401
+from tpu_lutvq_torch.runtime.eval import perplexity, sequence_logprobs  # noqa: F401

@@ -83,9 +83,13 @@ class ContinuousBatcher:
         time through :func:`make_chunked_prefill` (attention ``attn``);
         shorter ones keep the one-shot prefill, alone or in a wave.
 
+        ``quality`` ("exact" | "fast") is the serving precision budget, passed
+        to every prefill, wave, chunked admission and decode step: "fast"
+        serves the ``dequant_mm`` projections with the W8A8 tables.
+
         ``prefill_fn``/``step_fn``/``cache_factory``/``paged_cache_factory``
-        (tensor-parallel device programs), ``stacked_kv`` and
-        ``quality="fast"`` are not ported and raise."""
+        (tensor-parallel device programs) and ``stacked_kv`` are not ported
+        and raise."""
         if any(f is not None for f in (prefill_fn, step_fn, cache_factory,
                                        paged_cache_factory)):
             raise NotImplementedError(
@@ -97,15 +101,12 @@ class ContinuousBatcher:
                 "stacked_kv (the stacked/hybrid cache container) is not ported "
                 "(ROADMAP Queue 1 item 8)"
             )
-        if quality != "exact":
-            raise NotImplementedError(
-                f"quality={quality!r} needs the W8A8 dequant kernel (ROADMAP Queue 2 G)"
-            )
         self.cfg = cfg
         self.weights = weights
         self.n_slots = n_slots
         self.attn = attn
         self.strategy = strategy
+        self.quality = quality
         self.device = weights.embed.device
         self.pending: list[Request] = []
         self.active: list[Optional[Request]] = [None] * n_slots
@@ -219,11 +220,11 @@ class ContinuousBatcher:
         toks = self._to_device(prompts)
         if last_idx is None:
             logits, small = llama_forward(self.cfg, self.weights, toks, small, 0,
-                                          strategy=self.strategy)
+                                          strategy=self.strategy, quality=self.quality)
             return logits[:, -1], small
         logits, small = llama_forward(
             self.cfg, self.weights, toks, small, 0, strategy=self.strategy,
-            logits_mode="index", logits_idx=self._to_device(last_idx),
+            quality=self.quality, logits_mode="index", logits_idx=self._to_device(last_idx),
         )
         return logits[:, 0], small
 
@@ -255,6 +256,7 @@ class ContinuousBatcher:
             logits, self.caches = llama_decode_step(
                 self.cfg, self.weights, tok_vec, self.caches, pos_dev,
                 strategy=self.strategy, attn=self.attn, window=window,
+                quality=self.quality,
             )
             tok_vec = sample_logits_vec(logits, self.generator, temps_dev)
             out.append(tok_vec)

@@ -48,14 +48,12 @@ def make_chunked_prefill(
     chunk; chunk ``[c0, c1)`` attends over window ``bucket_window(c1)`` at
     offset ``c0`` (the flash-prefill kernel once ``attn`` resolves to it).
 
+    ``quality`` goes to every chunk's projections (``llama_forward``).
+
     Returns ``prefill(weights, tokens, caches) -> (last_logits (B, vocab),
     caches)``, the caches filled in place."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if quality != "exact":
-        raise NotImplementedError(
-            f"quality={quality!r} needs the W8A8 dequant kernel (ROADMAP Queue 2 G)"
-        )
 
     def prefill(weights: LlamaWeights, tokens: torch.Tensor, caches):
         t = tokens.shape[1]
@@ -65,7 +63,7 @@ def make_chunked_prefill(
             logits, caches = llama_forward(
                 cfg, weights, tokens[:, c0:c1], caches, c0, strategy=strategy,
                 window=bucket_window(c1, cfg.max_seq), attn=attn, variant=variant,
-                logits_mode="last",
+                quality=quality, logits_mode="last",
             )
         return logits[:, -1], caches
 
