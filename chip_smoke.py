@@ -19,10 +19,12 @@ Phases, one result line each; any failure raises and exits non-zero:
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
      int8, int16) a 7B projection; the precision tiers at the 7B projection
      shapes: the W8A8 dequant-matmul at 7/8/16/256 rows, the f32 one at
-     7/256 rows, ``pairf`` at one token.  Wrong-rounding controls must fail
-     each kernel's tolerance (the int8 and int16 lookups and the W8A8
-     matmul must equal their plain versions, ``pairf`` the ``pair`` kernel;
-     truncating instead of rounding must not).  Each row
+     7/256 rows, ``pairf`` at one token; the T-MAC W4 nibble lookups (J1
+     at one token's f32 table, J2 at 2, 8 and 16 tokens' bf16 tables) at
+     the 7B projection shapes and 4096 -> 28672.  Wrong-rounding controls
+     must fail each kernel's tolerance (the int8 and int16 lookups and the
+     W8A8 matmul must equal their plain versions, ``pairf`` the ``pair``
+     kernel; truncating instead of rounding must not).  Each row
      also times one PyTorch library call computing the same function and
      states the least time the card could take (bytes or operations);
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
@@ -57,8 +59,22 @@ Phases, one result line each; any failure raises and exits non-zero:
      one B=1 decode step with ``variant="pairf"``, 224 ``pairf`` launches,
      logits equal to the ``pair`` step's; (c) ``sequence_logprobs`` of 4 × 256
      seeded tokens exact, W8A8 and through the f32 oracle (which must
-     launch): KL and perplexity ratios against the oracle (findings).
-The line before the last is the kernels' JSON summary; the last line is
+     launch): KL and perplexity ratios against the oracle (findings);
+  7. tmac (after phase 5): one Llama-2-7B decoder layer's seven projections
+     as T-MAC W4 nibble-packed layers, ``apply(strategy="auto")`` at 1, 8 and
+     9 rows: J1 must launch at 1, J2 at 8, both at 9, no dequant kernel;
+     each output held to the unpacked pack's lookup and (1 row) the golden
+     model;
+  8. checkpoint: (a) a synthetic 32-layer Llama-2-7B-geometry AQLM 2x8
+     checkpoint (HF layout, numpy seed 0) loaded by ``load_aqlm_llama``
+     serves ``generate()`` as phase 3 (b) does, through A and C, with phase
+     3's logits gate, and a projection of each kind reconstructs to a numpy
+     dequant; (b) two of its layers as a sharded HF directory (the port's
+     safetensors writer) load back equal, ``save_lutvq``/``load_lutvq`` is
+     bit-equal with the same greedy tokens, and again at out_group_size 8
+     (B at 8 pseudo-rows, f32 tables against the numpy dequant); (c) a
+     4096x4096 1x16 projection in each ``one_x16`` mode.
+Each phase prints its seconds.  The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 
@@ -68,12 +84,17 @@ profiles batcher runs (i) and (iv) (``quality="fast"``) instead: device
 busy share, launches and device time by kernel (torch.profiler), and a B=8
 decode step, flash against einsum attention.
 
-    python3 chip_smoke.py --guard     # phases 0-1, then 2-4 and 6 guarded
+    python3 chip_smoke.py --guard     # phases 0-1, then 2-4, 6 and 7 guarded
 
-runs phases 2, 3, 4 and 6 with every CUDA buffer that a kernel wrapper
+runs phases 2, 3, 4, 6 and 7 with every CUDA buffer that a kernel wrapper
 allocates (outputs, workspaces) placed between two bands of 0xA5 bytes, and
 fails if any kernel wrote into a band: a check for writes past the end of a
 buffer, which no tool on the card reports.
+
+    python3 chip_smoke.py --spread    # phases 0-1, then phase 8 (a)'s gate
+
+holds phase 8 (a)'s loaded checkpoint to the logits gate at ten prompt
+seeds: how the chaotic random model's readings spread around the limit.
 """
 
 import contextlib
@@ -138,6 +159,32 @@ I8_ROWS = (7, 8, 16, 256)
 F32_ROWS = (7, 256)
 TIER_TOL = {"dequant_mm_i8": 0.0, "dequant_mm_f32": 1e-5, "lut_gemv_pairf": 1e-5}
 EVAL_B, EVAL_T = 4, 256  # phase 6 (c): sequences scored under each tier
+# Kernel J, the T-MAC W4 nibble lookups (phase 2 rows and phase 7): the
+# T-MAC scheme tmac(d_in, bits=4, group=4), K=16, with scales and zero
+# points, nibble-packed, at the Llama-2-7B projection shapes and the
+# microbench's 4096 -> 28672.  J1 (nibbles) takes one token's f32 table, J2
+# (nibbles_bpair) 2-8 tokens' bf16 tables, 16 tokens in two launches; both
+# sum in f32 in another order than the plain version.  Controls: J1 with
+# its table rounded to bf16, J2 with its table left in f32.
+NIBBLE_TOL = 1e-5
+TMAC_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 28672))
+NIBBLE_BATCHES = {"lut_gemv_nibbles": (1,), "lut_gemv_nibbles_bpair": (2, 8, 16)}
+# phase 7: one Llama-2-7B decoder layer's projections as T-MAC W4 layers
+# (name, d_in, d_out), at 1, 8 and 9 rows (9 = a launch of 8 and one of 1)
+TMAC_LAYER = (("wq", 4096, 4096), ("wk", 4096, 4096), ("wv", 4096, 4096),
+              ("wo", 4096, 4096), ("w_gate", 4096, 11008), ("w_up", 4096, 11008),
+              ("w_down", 11008, 4096))
+TMAC_ROWS = (1, 8, 9)
+TMAC_GOLDEN_TOL = 1e-4  # B=1 against core.golden.lut_gemm (f32, another order)
+# phase 8: AQLM checkpoints at Llama-2-7B geometry (synthetic, numpy seed 0)
+CKPT_MODEL = {}  # LlamaConfig.llama2_7b's arguments: its geometry, uncut
+CKPT_PROMPT, CKPT_NEW = 16, 16  # phase 3 (b)'s request
+CKPT_PROMPT_SEED = 1  # phase 3's prompt seed
+SPREAD_SEEDS = tuple(range(1, 11))  # --spread: prompt seeds of phase 8 (a)'s gate
+ONE_X16_SHAPE = (4096, 4096)  # (d_in, d_out) of (c)'s 1x16 projection
+CKPT_DISK_LAYERS = 2
+CKPT_OG_TOL = 1e-4  # out_group 8, f32 tables against the numpy dequant
+CKPT_CHUNKED_TOL = 2e-2  # 1x16 chunked (bf16 weights) against the numpy dequant
 # Attention kernels, max|kernel - plain| / max|plain| per call.  Kernel and
 # plain version compute the same function with the same rounding points and
 # differ only in f32 summation order, which now and then moves a p across a
@@ -183,6 +230,7 @@ SUMMARY_AT = {
     "lut_gemv_i16": "scan B=8 G=16 K=256",
     "dequant_mm_i8": "4096x4096 rows=8", "dequant_mm_f32": "4096x4096 rows=256",
     "lut_gemv_pairf": "4096x4096 B=1",
+    "lut_gemv_nibbles": "tmac 4096x4096 B=1", "lut_gemv_nibbles_bpair": "tmac 4096x4096 B=8",
 }
 # phase 5: FAISS benchs/bench_polysemous_sift1m.py, IndexPQ(128, 16, 8)
 ANN_D, ANN_M, ANN_K = 128, 16, 256
@@ -230,6 +278,22 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls=20):
+    """The card's own time for one ``fn()`` (torch.profiler: the self time
+    of every CUDA kernel the calls launch, over ``calls`` calls with the L2
+    warm), without the host's dispatch that an event-timed call includes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
 
 
 def attention_modules():
@@ -689,6 +753,77 @@ def phase_tiers(device):
     return rows
 
 
+def tmac_layer(gen, d_in, d_out):
+    """A T-MAC W4 layer (scales and zero points) from ``gen``: (cfg,
+    params, nibble pack)."""
+    from tpu_lutvq_torch import init_vq_params, tmac
+
+    lg, _ = kernel_modules()
+    cfg = tmac(d_in, bits=4, group=4)
+    params = init_vq_params(gen, cfg, d_out, with_scales=True, with_zeros=True)
+    return cfg, params, lg.pack_params(cfg, params, nibble_pack=True)
+
+
+def phase_nibbles(device):
+    """Kernel J against its plain version at the T-MAC W4 shapes
+    (``TMAC_SHAPES``): J1 at one token, J2 at 2, 8 and 16 (two launches),
+    each through ``lut_gemv_packed`` over the f32 tables ``lut_gemv`` builds
+    for it (J2 rounds them to bf16), with the wrong-precision control.
+    ``ms`` times that lookup (events, L2 flushed: the host's dispatch
+    included), ``device_ms`` the card's kernels alone (profiler),
+    ``wrapper_ms`` the whole ``lut_gemv`` call (table build, lookup,
+    zero-point epilogue); the library call is ``x @ W.T`` in bf16 over the
+    dequantized weight."""
+    from tpu_lutvq_torch.core.golden import dequantize
+    from tpu_lutvq_torch.kernels.lut_ctor import build_lut
+
+    lg, _ = kernel_modules()
+    gen = torch.Generator(device).manual_seed(4242)
+    rows = {name: [] for name in NIBBLE_BATCHES}
+    for d_in, d_out in TMAC_SHAPES:
+        cfg, params, packed = tmac_layer(gen, d_in, d_out)
+        w = dequantize(cfg, params).to(torch.bfloat16)
+        for name, batches in NIBBLE_BATCHES.items():
+            for b in batches:
+                x = torch.randn((b, d_in), generator=gen, device=device)
+                f32 = name == "lut_gemv_nibbles"
+                lut = build_lut(cfg, packed.codebook, x,
+                                compute_dtype=torch.float32 if f32 else torch.bfloat16)
+                got = lg.lut_gemv_packed(cfg, packed, lut)
+                want = lg.lut_gemv_packed(cfg, packed, lut, plain=True)
+                # the other table precision, through the same plain version
+                wrong = lut.to(torch.bfloat16) if f32 else lut
+                control = torch.cat([
+                    lg.lut_lookup_nibbles_plain(wrong[i : i + 8], packed.codes_t,
+                                                packed.scales, packed.d_out)
+                    for i in range(0, b, 8)])
+                torch.cuda.synchronize()
+                xb = x.to(torch.bfloat16)
+                n_bytes = nbytes(packed.codes_t, packed.scales, got) + (
+                    b * cfg.n_groups * 16 * (4 if f32 else 2))
+                rows[name].append(with_bound(dict(
+                    shape=f"tmac {d_in}x{d_out} B={b}", rel=rel_err(got, want),
+                    abs=float((got - want).abs().max()), control=rel_err(control, want),
+                    ms=time_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut)),
+                    device_ms=device_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut)),
+                    plain_ms=time_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut, plain=True),
+                                     reps=5),
+                    library_ms=time_ms(lambda: xb @ w.T),
+                    wrapper_ms=time_ms(lambda: lg.lut_gemv(cfg, packed, x)),
+                ), n_bytes, b * cfg.n_groups * d_out, "f32"))
+                del lut, got, want, control
+        del w, packed, params
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol "
+                  f"{NIBBLE_TOL:.0e}, wrong-precision control {r['control']:.3e}) abs err "
+                  f"{r['abs']:.3e}  " + times(r) + f"  device {r['device_ms']:.4f} ms  whole "
+                  f"lut_gemv {r['wrapper_ms']:.4f} ms")
+            check(r["rel"] <= NIBBLE_TOL, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["control"] > NIBBLE_TOL, f"{name} {r['shape']}: tolerance passes the control")
+    return rows
+
+
 def kv_cache(gen, lead, dh, kv_dtype, device):
     """Random K, V and their row scales: int8 values with scales in
     [0.005, 0.02), or bf16 values with unit scales."""
@@ -1002,7 +1137,9 @@ def counters():
             "lut_gemv_i16": (lg, "LUT_GEMV_I16_LAUNCHES"),
             "dequant_mm_i8": (dq, "DEQUANT_MM_I8_LAUNCHES"),
             "dequant_mm_f32": (dq, "DEQUANT_MM_F32_LAUNCHES"),
-            "lut_gemv_pairf": (lg, "LUT_GEMV_PAIRF_LAUNCHES")}
+            "lut_gemv_pairf": (lg, "LUT_GEMV_PAIRF_LAUNCHES"),
+            "lut_gemv_nibbles": (lg, "LUT_GEMV_NIBBLES_LAUNCHES"),
+            "lut_gemv_nibbles_bpair": (lg, "LUT_GEMV_NIBBLES_BPAIR_LAUNCHES")}
 
 
 def serve(cfg, weights, prompts, run_kw=None, watch=None, **kw):
@@ -1437,6 +1574,353 @@ def phase_ann(device):
             "lut_gemv_f32": results["(d) l2 refined"]["launches"]["lut_gemv_f32"]}
 
 
+def phase_tmac(device):
+    """Phase 7: one Llama-2-7B decoder layer's seven projections as T-MAC
+    W4 nibble-packed layers through ``QuantizedLinear.apply(strategy=
+    "auto")`` at 1, 8 and 9 rows.  J1 must launch at 1, J2 at 8, both at 9,
+    the dequant kernels never.  Each output is held to the same layer from
+    the unpacked K=16 pack through ``lut_gemv`` (the same entries: f32
+    tables through K at one token, bf16 ones through B from two up), and at
+    one row to ``core.golden.lut_gemm``.  Returns J1's and J2's launches."""
+    from tpu_lutvq_torch.core.golden import lut_gemm
+    from tpu_lutvq_torch.models.linear import QuantizedLinear
+
+    lg, dq = kernel_modules()
+    gen = torch.Generator(device).manual_seed(0)
+    j_counters = ("LUT_GEMV_NIBBLES_LAUNCHES", "LUT_GEMV_NIBBLES_BPAIR_LAUNCHES")
+    dq_counters = ("DEQUANT_MM_LAUNCHES", "DEQUANT_MM_I8_LAUNCHES", "DEQUANT_MM_F32_LAUNCHES")
+    layers = []
+    for name, d_in, d_out in TMAC_LAYER:
+        cfg, params, packed = tmac_layer(gen, d_in, d_out)
+        unpacked = QuantizedLinear(lg.pack_params(cfg, params))
+        layers.append((name, cfg, params, QuantizedLinear(packed), unpacked))
+        print(f"[tmac] {name} {d_in}x{d_out}: code bytes nibble pack {nbytes(packed.codes_t):,}, "
+              f"unpacked {nbytes(unpacked.packed.codes_t):,}")
+    xs = {(b, d_in): torch.randn((b, d_in), generator=gen, device=device)
+          for b in TMAC_ROWS for d_in in sorted({d for _, d, _ in TMAC_LAYER})}
+    for _, cfg, _, nib, _ in layers:  # warm-up: lazy inits, allocator pools
+        nib.apply(cfg, xs[1, cfg.d_in])
+    torch.cuda.synchronize()
+    for attr in j_counters + dq_counters:
+        setattr(lg if attr in j_counters else dq, attr, 0)
+    results = []
+    for b in TMAC_ROWS:
+        for name, cfg, params, nib, unpacked in layers:
+            x = xs[b, cfg.d_in]
+            before = [getattr(lg, a) for a in j_counters] + [getattr(dq, a) for a in dq_counters]
+            y = nib.apply(cfg, x, strategy="auto")
+            after = [getattr(lg, a) for a in j_counters] + [getattr(dq, a) for a in dq_counters]
+            results.append((name, b, cfg, params, nib, unpacked, x, y,
+                            [u - v for u, v in zip(after, before)]))
+    launches = {"lut_gemv_nibbles": getattr(lg, j_counters[0]),
+                "lut_gemv_nibbles_bpair": getattr(lg, j_counters[1])}
+    for name, b, cfg, params, nib, unpacked, x, y, delta in results:
+        ref = unpacked.apply(cfg, x, strategy="lut_gemv")
+        golden = lut_gemm(cfg, params, x) if b == 1 else None
+        torch.cuda.synchronize()
+        err = rel_err(y, ref)
+        g_err = rel_err(y, golden) if golden is not None else float("nan")
+        ms = time_ms(lambda: nib.apply(cfg, x, strategy="auto"), reps=10)
+        print(f"[tmac] {name} B={b}: launches J1 {delta[0]} J2 {delta[1]} dequant {sum(delta[2:])}; "
+              f"rel err vs the unpacked pack {err:.3e} (tol {NIBBLE_TOL:.0e}), vs golden "
+              f"{g_err:.3e}; apply {ms:.4f} ms")
+        check(y.shape == (b, nib.packed.d_out) and bool(torch.isfinite(y).all()),
+              f"phase 7 {name} B={b}: output {tuple(y.shape)}")
+        check((delta[0] > 0) == (b % 8 == 1) and (delta[1] > 0) == (b >= 8),
+              f"phase 7 {name} B={b}: the wrong nibble kernels launched {delta[:2]}")
+        check(sum(delta[2:]) == 0, f"phase 7 {name} B={b}: a dequant kernel launched")
+        check(err <= NIBBLE_TOL, f"phase 7 {name} B={b}: differs from the unpacked pack {err}")
+        check(b != 1 or g_err <= TMAC_GOLDEN_TOL, f"phase 7 {name}: differs from golden {g_err}")
+    print(f"[tmac] launches over the layer at rows {TMAC_ROWS}: " +
+          " ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches
+
+
+def synth_aqlm(cfg, n_layers, out_g=1, seed=0):
+    """A Llama in the AQLM Hugging Face layout (``runtime/checkpoint.py``'s
+    doc) at ``cfg``'s widths, numpy ``default_rng(seed)``: 2x8 codes as
+    two's-complement int8, fp16 codebooks (N, K, out_g, 8) and per-row
+    scales, fp16 embedding, norms and lm_head, distributed as
+    ``init_llama``'s weights are."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, f = cfg.hidden, cfg.ffn
+    shapes = {"self_attn.q_proj": (h, cfg.q_dim), "self_attn.k_proj": (h, cfg.kv_dim),
+              "self_attn.v_proj": (h, cfg.kv_dim), "self_attn.o_proj": (cfg.q_dim, h),
+              "mlp.gate_proj": (h, f), "mlp.up_proj": (h, f), "mlp.down_proj": (f, h)}
+    t = {}
+    for i in range(n_layers):
+        base = f"model.layers.{i}"
+        for proj, (d_in, d_out) in shapes.items():
+            rows = d_out // out_g
+            t[f"{base}.{proj}.codes"] = rng.integers(0, 256, (rows, d_in // 8, 2),
+                                                     dtype=np.uint8).view(np.int8)
+            t[f"{base}.{proj}.codebooks"] = rng.standard_normal(
+                (2, 256, out_g, 8), dtype=np.float32).astype(np.float16)
+            t[f"{base}.{proj}.scales"] = (1 + 0.1 * rng.standard_normal(
+                (rows, 1, 1, 1), dtype=np.float32)).astype(np.float16)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            t[f"{base}.{norm}.weight"] = np.ones(h, np.float16)
+    for name in ("model.embed_tokens.weight", "lm_head.weight"):
+        t[name] = (rng.standard_normal((cfg.vocab_size, h), dtype=np.float32)
+                   / math.sqrt(h)).astype(np.float16)
+    t["model.norm.weight"] = np.ones(h, np.float16)
+    return t
+
+
+def numpy_dequant(tensors, prefix):
+    """Independent oracle: AQLM's ``_dequantize_weight`` in numpy f32, block
+    rows interleaved (row o·og + r = block row r of code row o)."""
+    import numpy as np
+
+    codes = tensors[f"{prefix}.codes"]
+    codes = codes.view(np.uint8 if codes.dtype == np.int8 else np.uint16).astype(np.int64)
+    cb = tensors[f"{prefix}.codebooks"].astype(np.float32)  # (N, K, og, g)
+    rows, m, n_cb = codes.shape
+    og, g = cb.shape[2], cb.shape[3]
+    w = np.zeros((rows, m, og, g), np.float32)
+    for n in range(n_cb):
+        w += cb[n][codes[:, :, n]]
+    w *= tensors[f"{prefix}.scales"].reshape(-1).astype(np.float32)[:, None, None, None]
+    return torch.from_numpy(w.transpose(0, 2, 1, 3).reshape(rows * og, m * g))
+
+
+def save_sharded(tensors, directory, n_shards=2):
+    """``tensors`` as a Hugging Face directory: ``n_shards`` safetensors
+    files and ``model.safetensors.index.json``, with the port's writer."""
+    import os
+
+    from tpu_lutvq_torch.utils import safetensors_io
+
+    names = sorted(tensors)
+    weight_map = {}
+    for s in range(n_shards):
+        shard = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = names[s::n_shards]
+        safetensors_io.save_file({n: torch.from_numpy(tensors[n]) for n in part},
+                                 os.path.join(directory, shard))
+        weight_map.update({n: shard for n in part})
+    with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+
+
+def weight_tensors(weights):
+    """Every tensor of a LlamaWeights, and each pack's metadata, in order."""
+    out = [weights.embed, weights.final_norm, weights.lm_head.w]
+    for lw in weights.layers:
+        out += [lw.attn_norm, lw.mlp_norm]
+        for proj in (lw.wq, lw.wk, lw.wv, lw.wo, lw.w_gate, lw.w_up, lw.w_down):
+            p = proj.packed
+            out += [p.codes_t, p.codebook, p.scales, p.zero_points,
+                    (p.d_out, p.shards, p.nibbles, p.out_group)]
+    return out
+
+
+def same_weights(a, b):
+    ta, tb = weight_tensors(a), weight_tensors(b)
+    return len(ta) == len(tb) and all(
+        (u is None and v is None) or (isinstance(u, tuple) and u == v)
+        or (isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor)
+            and u.dtype == v.dtype and torch.equal(u, v))
+        for u, v in zip(ta, tb))
+
+
+def phase_checkpoint(device):
+    """Phase 8: the checkpoint entry point.  (a) A synthetic 32-layer
+    Llama-2-7B-geometry AQLM checkpoint in memory, loaded by
+    ``load_aqlm_llama``, serves ``generate()`` as phase 3 (b) does, through
+    A and C, with phase 3's logits gate; a projection of each kind
+    reconstructs to the numpy dequant.  (b) Two of its layers written as a
+    sharded HF directory, loaded back equal; ``save_lutvq``/``load_lutvq``
+    bit-equal with the same greedy tokens; the same at out_group_size 8,
+    where B serves 8 pseudo-rows a token and the f32 tables meet the numpy
+    dequant.  (c) One 4096x4096 1x16 projection in each ``one_x16`` mode.
+    Temporary files go at the end."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tpu_lutvq_torch.models.llama import LlamaConfig
+    from tpu_lutvq_torch.runtime import generate
+    from tpu_lutvq_torch.runtime.checkpoint import (
+        PROJ_NAMES, load_aqlm_linear, load_aqlm_llama, load_lutvq, save_lutvq)
+
+    lg, dq = kernel_modules()
+    # (a) full depth, in memory; the prompt from phase 3's prompt seed (the
+    # logits gate is a draw on a chaotic random model: ``--spread``)
+    cfg = LlamaConfig.llama2_7b(**CKPT_MODEL)
+    prompt = ckpt_prompt(cfg, CKPT_PROMPT_SEED)
+    tensors, secs = timed(lambda: synth_aqlm(cfg, cfg.n_layers))
+    weights, load_s = timed(lambda: load_aqlm_llama(tensors, cfg, device=device))
+    print(f"[ckpt] (a) synthetic AQLM 2x8 checkpoint, {cfg.n_layers} layers: made in {secs:.1f} s "
+          f"({sum(a.nbytes for a in tensors.values()) / 2**30:.2f} GiB on the host), loaded in "
+          f"{load_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    lw = weights.layers[0]
+    for field, proj in PROJ_NAMES.items():
+        layer = getattr(lw, field)
+        d_in = tensors[f"model.layers.0.{proj}.codes"].shape[1] * 8
+        vq = cfg.vq_cfg(d_in)
+        w = layer.apply(vq, torch.eye(d_in, device=device), strategy="dense_bf16").T
+        err = rel_err(w, numpy_dequant(tensors, f"model.layers.0.{proj}").to(device))
+        print(f"[ckpt] (a) layer 0 {field} {tuple(w.shape)}: dense_bf16 vs numpy dequant {err:.3e}")
+        check(err <= 1e-6, f"(a) {field} reconstructs wrong: {err}")
+        del w
+    generate(cfg, weights, prompt, 2)  # warm-up
+    lg.LUT_GEMV_LAUNCHES = dq.DEQUANT_MM_LAUNCHES = 0
+    res, total_s = timed(lambda: generate(cfg, weights, prompt, CKPT_NEW))
+    launches = {"lut_gemv": lg.LUT_GEMV_LAUNCHES, "dequant_mm": dq.DEQUANT_MM_LAUNCHES}
+    check(min(launches.values()) > 0, f"(a) a kernel did not launch {launches}")
+    toks = res.tokens
+    check(toks.shape == (1, CKPT_PROMPT + CKPT_NEW) and toks[0, :CKPT_PROMPT].tolist() == prompt[0]
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"(a) tokens {toks}")
+    errs, finite = logits_errors(cfg, weights, prompt)
+    floor = max(max(errs[run]) for run in REFERENCE_RUNS if run.startswith("floor"))
+    print(f"[ckpt] (a) generate() B=1 prompt {CKPT_PROMPT} new {CKPT_NEW}: {total_s:.2f} s "
+          f"(host clock); launches " + " ".join(f"{k} {v}" for k, v in launches.items()))
+    print("[ckpt] (a) logits rel err vs plain, prefill/step: " + ", ".join(
+        f"{run} {pre:.3e}/{stp:.3e}" for run, (pre, stp) in errs.items()))
+    check(finite, "(a) non-finite logits")
+    check(max(errs["kernel"]) <= LOGITS_TOL, f"(a) logits disagree {errs}")
+    check(floor <= LOGITS_TOL, "(a) plain-vs-plain noise over the tolerance")
+    check(max(errs["control"]) > LOGITS_TOL, "(a) tolerance passes the control")
+    del weights
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) two layers on disk, out_group_size 1 and 8
+        cfg2 = LlamaConfig.llama2_7b(**dict(CKPT_MODEL, n_layers=CKPT_DISK_LAYERS))
+        keep = tuple(f"model.layers.{i}." for i in range(CKPT_DISK_LAYERS))
+        for og in (1, 8):
+            if og == 1:
+                part = {k: v for k, v in tensors.items()
+                        if not k.startswith("model.layers.") or k.startswith(keep)}
+            else:
+                part = synth_aqlm(cfg2, CKPT_DISK_LAYERS, out_g=og, seed=1)
+            hf = os.path.join(tmp, f"hf_og{og}")
+            os.makedirs(hf)
+            _, write_s = timed(lambda: save_sharded(part, hf))
+            disk = sum(os.path.getsize(os.path.join(hf, f)) for f in os.listdir(hf))
+            w_disk, read_s = timed(lambda: load_aqlm_llama(hf, cfg2, device=device))
+            w_mem = load_aqlm_llama(part, cfg2, device=device)
+            check(same_weights(w_disk, w_mem), f"(b) og={og}: the disk load differs from memory")
+            native = os.path.join(tmp, f"og{og}.lutvq.safetensors")
+            _, save_s = timed(lambda: save_lutvq(native, cfg2, w_disk))
+            (cfg3, w_native), native_s = timed(lambda: load_lutvq(native, device=device))
+            check(cfg3 == cfg2 and same_weights(w_native, w_disk),
+                  f"(b) og={og}: the native round trip is not bit-equal")
+            t1 = generate(cfg2, w_disk, prompt, 8).tokens
+            t2 = generate(cfg2, w_native, prompt, 8).tokens
+            check(torch.equal(t1, t2), f"(b) og={og}: tokens differ after the native round trip")
+            print(f"[ckpt] (b) out_group {og}, {CKPT_DISK_LAYERS} layers: HF directory of 2 shards, "
+                  f"{disk / 2**20:.1f} MiB written in {write_s:.2f} s, read and loaded in "
+                  f"{read_s:.2f} s, equal to the in-memory load; native file "
+                  f"{os.path.getsize(native) / 2**20:.1f} MiB saved in {save_s:.2f} s, loaded in "
+                  f"{native_s:.2f} s, bit-equal, greedy tokens equal")
+            if og > 1:
+                out_group_checks(device, cfg2, w_disk, part, og)
+            del w_disk, w_mem, w_native, part
+        del tensors
+
+        # (c) one 1x16 projection in each mode
+        d_in, d_out = ONE_X16_SHAPE
+        rng = np.random.default_rng(2)
+        one = {"p.codes": rng.integers(0, 65536, (d_out, d_in // 8, 1), dtype=np.uint16)
+               .view(np.int16),
+               "p.codebooks": rng.standard_normal((1, 65536, 1, 8), dtype=np.float32)
+               .astype(np.float16),
+               "p.scales": (1 + 0.1 * rng.standard_normal((d_out, 1, 1, 1), dtype=np.float32))
+               .astype(np.float16)}
+        w_ref = numpy_dequant(one, "p").to(device)
+        x = torch.randn((8, d_in), generator=torch.Generator(device).manual_seed(3), device=device)
+        y_ref = x.double() @ w_ref.double().T
+        (dense, _), secs = timed(lambda: load_aqlm_linear(one, "p", one_x16="dequant",
+                                                          device=device))
+        same = bool(torch.equal(dense.w, w_ref.to(torch.bfloat16)))
+        print(f"[ckpt] (c) 1x16 {d_in}x{d_out} dequant: loaded in {secs:.2f} s, weight equal to "
+              f"the numpy dequant rounded to bf16: {same}")
+        check(same, "(c) dequant differs from the numpy oracle")
+        (chunked, c_cfg), secs = timed(lambda: load_aqlm_linear(one, "p", one_x16="chunked",
+                                                                device=device))
+        err = rel_err(chunked.apply(c_cfg, x).double(), y_ref)
+        ms = time_ms(lambda: chunked.apply(c_cfg, x), reps=5)
+        print(f"[ckpt] (c) chunked: loaded in {secs:.2f} s, 8 rows rel err {err:.3e} (tol "
+              f"{CKPT_CHUNKED_TOL:.0e}), {ms:.3f} ms a call; codes "
+              f"{nbytes(chunked.codes) / 2**20:.1f} MiB against the dense "
+              f"{nbytes(dense.w) / 2**20:.1f} MiB")
+        check(err <= CKPT_CHUNKED_TOL, f"(c) chunked disagrees: {err}")
+        (refit, r_cfg), secs = timed(lambda: load_aqlm_linear(one, "p", one_x16="refit",
+                                                              device=device))
+        w2 = refit.apply(r_cfg, torch.eye(d_in, device=device), strategy="dense_bf16").T
+        q_err = float(torch.linalg.norm(w2 - w_ref) / torch.linalg.norm(w_ref))
+        print(f"[ckpt] (c) refit to 2x8: {secs:.2f} s, relative error {q_err:.4f} (random "
+              f"codebooks do not decompose; a finding, not a gate)")
+        check(math.isfinite(q_err) and r_cfg.n_cluster == 256, "(c) refit failed")
+
+
+def ckpt_prompt(cfg, seed):
+    ids = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (CKPT_PROMPT,), generator=ids).tolist()]
+
+
+def phase_gate_spread(device):
+    """``--spread``: phase 8 (a)'s logits gate on its loaded checkpoint for
+    each prompt seed of ``SPREAD_SEEDS``: how often a fresh draw of the
+    chaotic random model reads over the limit, with its floors and control."""
+    from tpu_lutvq_torch.models.llama import LlamaConfig
+    from tpu_lutvq_torch.runtime.checkpoint import load_aqlm_llama
+
+    cfg = LlamaConfig.llama2_7b(**CKPT_MODEL)
+    weights = load_aqlm_llama(synth_aqlm(cfg, cfg.n_layers), cfg, device=device)
+    over = 0
+    for seed in SPREAD_SEEDS:
+        errs, finite = logits_errors(cfg, weights, ckpt_prompt(cfg, seed))
+        floor = max(max(errs[run]) for run in REFERENCE_RUNS if run.startswith("floor"))
+        over += max(errs["kernel"]) > LOGITS_TOL
+        print(f"[spread] prompt seed {seed}: kernel {max(errs['kernel']):.3e} floors "
+              f"{floor:.3e} control {max(errs['control']):.3e} finite {finite}")
+    print(f"[spread] kernel runs over {LOGITS_TOL:g}: {over} of {len(SPREAD_SEEDS)}")
+
+
+def out_group_checks(device, cfg, weights, tensors, og):
+    """Phase 8 (b) at ``out_group_size`` og: one B=1 decode step, where B
+    must serve every projection at og pseudo-rows, and layer 0's
+    projections through the f32 tables against the numpy dequant."""
+    from tpu_lutvq_torch.models.llama import init_caches, llama_decode_step
+    from tpu_lutvq_torch.runtime.checkpoint import PROJ_NAMES
+
+    lg, _ = kernel_modules()
+    rows, launch = [], lg._launch
+
+    def recording(lut, *a):
+        rows.append(lut.shape[0])
+        return launch(lut, *a)
+
+    tok = torch.tensor([1], dtype=torch.int32, device=device)
+    lg._launch, lg.LUT_GEMV_LAUNCHES = recording, 0
+    try:
+        llama_decode_step(cfg, weights, tok, init_caches(cfg, 1, device=device), 0)
+        torch.cuda.synchronize()
+    finally:
+        lg._launch = launch
+    n = lg.LUT_GEMV_LAUNCHES
+    print(f"[ckpt] (b) out_group {og}: a B=1 decode step launched B {n} times at "
+          f"{sorted(set(rows))} pseudo-rows")
+    check(n == 7 * cfg.n_layers and set(rows) == {og}, f"(b) B did not serve {og} pseudo-rows")
+    gen = torch.Generator(device).manual_seed(5)
+    for field, proj in PROJ_NAMES.items():
+        layer = getattr(weights.layers[0], field)
+        prefix = f"model.layers.0.{proj}"
+        d_in = tensors[f"{prefix}.codes"].shape[1] * 8
+        x = torch.randn((1, d_in), generator=gen, device=device)
+        y = layer.apply(cfg.vq_cfg(d_in), x, strategy="lut_gemv", variant="f32")
+        want = x.double() @ numpy_dequant(tensors, prefix).to(device).double().T
+        err = rel_err(y.double(), want)
+        check(err <= CKPT_OG_TOL, f"(b) out_group {og} {field}: f32 tables disagree {err}")
+    print(f"[ckpt] (b) out_group {og}: layer 0's projections, f32 tables against the numpy "
+          f"dequant within {CKPT_OG_TOL:.0e}")
+
+
 KERNELS = {
     "lut_gemv": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
@@ -1488,6 +1972,14 @@ KERNELS = {
     "lut_gemv_pairf": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:309",
+    ),
+    "lut_gemv_nibbles": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:628",
+    ),
+    "lut_gemv_nibbles_bpair": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:658",
     ),
 }
 # the main-path run whose launch counts each kernel's summary reports
@@ -1546,14 +2038,14 @@ class GuardBands:
 
 
 def phase_guarded(device):
-    """Phases 2, 3, 4 and 6 with the kernel wrappers' buffers in guard bands."""
+    """Phases 2, 3, 4, 6 and 7 with the kernel wrappers' buffers in guard bands."""
     mods = [importlib.import_module(f"tpu_lutvq_torch.kernels.{m}")
             for m in ("lut_gemv", "dequant_mm", "flash_decode", "flash_prefill")]
     bands = GuardBands()
     for m in mods:
         m.torch = bands
     try:
-        for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers):
+        for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers, phase_nibbles):
             phase(device)
             bands.check(phase.__name__)
         cfg, weights = model(device)
@@ -1563,6 +2055,9 @@ def phase_guarded(device):
         bands.check("phase_batcher")
         phase_tier_runs(device, cfg, weights, batcher)
         bands.check("phase_tier_runs")
+        del weights, batcher
+        phase_tmac(device)
+        bands.check("phase_tmac")
     finally:
         for m in mods:
             m.torch = torch
@@ -1570,6 +2065,13 @@ def phase_guarded(device):
     for who in bands.bad:
         print(f"[guard] written past: {who}")
     check(not bands.bad, "a kernel wrote outside its buffer")
+
+
+def run_phase(label, fn, *args):
+    """``fn(*args)``, then its seconds (host clock, synchronised)."""
+    out, secs = timed(lambda: fn(*args))
+    print(f"[time] {label}: {secs:.1f} s")
+    return out
 
 
 def main(mode=None):
@@ -1584,20 +2086,27 @@ def main(mode=None):
     if mode == "--guard":
         phase_guarded(device)
         return
-    rows = phase_kernels(device)
-    rows.update(phase_attention(device))
-    for name, rs in phase_tables(device).items():
+    if mode == "--spread":
+        phase_gate_spread(device)
+        return
+    rows = run_phase("phase 2 projections", phase_kernels, device)
+    rows.update(run_phase("phase 2 attention", phase_attention, device))
+    for name, rs in run_phase("phase 2 tables", phase_tables, device).items():
         rows.setdefault(name, []).extend(rs)
-    rows.update(phase_tiers(device))
+    rows.update(run_phase("phase 2 tiers", phase_tiers, device))
+    rows.update(run_phase("phase 2 nibbles", phase_nibbles, device))
     cfg, weights = model(device)
-    launches = phase_slice(device, cfg, weights)
-    batcher = phase_batcher(device, cfg, weights)
+    launches = run_phase("phase 3", phase_slice, device, cfg, weights)
+    batcher = run_phase("phase 4", phase_batcher, device, cfg, weights)
     for name, run in LAUNCHES_FROM.items():
         launches[name] = batcher[run]["launches"][name]
-    launches.update(phase_tier_runs(device, cfg, weights, batcher))
+    launches.update(run_phase("phase 6", phase_tier_runs, device, cfg, weights, batcher))
     del weights, batcher
     torch.cuda.empty_cache()
-    launches.update(phase_ann(device))
+    launches.update(run_phase("phase 5", phase_ann, device))
+    torch.cuda.empty_cache()
+    launches.update(run_phase("phase 7", phase_tmac, device))
+    run_phase("phase 8", phase_checkpoint, device)
     summary = []
     for name, meta in KERNELS.items():
         at = next(r for r in rows[name] if r["shape"].startswith(SUMMARY_AT[name]))
@@ -1618,7 +2127,7 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    if sys.argv[1:] not in ([], ["--profile"], ["--guard"]):
-        print("usage: chip_smoke.py [--profile | --guard]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--profile"], ["--guard"], ["--spread"]):
+        print("usage: chip_smoke.py [--profile | --guard | --spread]", file=sys.stderr)
         sys.exit(2)
     main(*sys.argv[1:])

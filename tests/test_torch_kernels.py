@@ -318,15 +318,19 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_variants_raise():
-    """What is still not ported raises: shard, nibble (kernel J) and
-    out_group packs cannot cross into the port, and a variant name the JAX
-    dispatcher does not know is refused."""
+    """Shard and out_group packs cross into the port equal to its own
+    ``pack_params`` layout, and a nibble variant name on an 8-bit pack is
+    refused (the JAX dispatcher would run the nibble kernel over byte
+    codes)."""
     jcfg, tcfg, jp, tp = make_params(256, 128, shared=True)
     pk = tlut.pack_params(tcfg, tp)
     with pytest.raises(ValueError, match="unknown lut_gemv variant"):
         tlut.lut_gemv(tcfg, pk, torch.zeros(1, 256), variant="nibbles")
     blocks = jp._replace(codebook=jnp.concatenate([jp.codebook] * 2))  # (out_group, N, K, d)
-    for params, kw in ((jp, dict(shards=2)), (blocks, dict(out_group=2))):
-        jpk = jlut.pack_params(jcfg, params, **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            packed_from_numpy(jpk, "cpu")
+    tblocks = tp._replace(codebook=torch.cat([tp.codebook] * 2))
+    for params, tparams, kw in ((jp, tp, dict(shards=2)), (blocks, tblocks, dict(out_group=2))):
+        carried = packed_from_numpy(jlut.pack_params(jcfg, params, **kw), "cpu")
+        own = tlut.pack_params(tcfg, tparams, **kw)
+        assert torch.equal(carried.codes_t, own.codes_t)
+        assert torch.equal(carried.scales, own.scales)
+        assert (carried.shards, carried.out_group) == (own.shards, own.out_group)

@@ -492,8 +492,11 @@ def test_unknown_tables_and_packs_raise():
     big = tcore.VQConfig(256, 32, 1, 512)
     with pytest.raises(ValueError, match="K ≤ 256"):
         tdq.dequant_matmul(big, tpk, torch.zeros(8, 256), tables="i8")
-    # nibble packs (kernel J) are not ported: they cannot cross into the port
+    # a nibble pack (kernel J) crosses into the port equal to its own layout
     params = jcore.init_vq_params(jax.random.PRNGKey(0), jcore.tmac(256), 128)
-    nib = jlut.pack_params(jcore.tmac(256), params, nibble_pack=True)
-    with pytest.raises(NotImplementedError, match="nibble"):
-        packed_from_numpy(nib, "cpu")
+    nib = packed_from_numpy(jlut.pack_params(jcore.tmac(256), params, nibble_pack=True), "cpu")
+    own = tlut.pack_params(tcore.tmac(256), tcore.VQParams(
+        *(None if a is None else torch.from_numpy(np.array(a)) for a in params)),
+        nibble_pack=True)
+    assert nib.nibbles and own.nibbles
+    assert torch.equal(nib.codes_t, own.codes_t)

@@ -1,8 +1,9 @@
 """tpu-lutvq, PyTorch + CUDA port for NVIDIA Hopper.
 
 The JAX/Pallas package ``tpu_lutvq`` is the reference; this package serves
-the same AQLM-2x8 Llama ``generate()`` and ``ContinuousBatcher`` paths, and
-the same PQ/RQ ANN search, with PyTorch around hand-written CUDA kernels
+the same AQLM-2x8 Llama ``generate()`` and ``ContinuousBatcher`` paths (from
+random weights or an AQLM checkpoint), T-MAC nibble-packed layers, and the
+same PQ/RQ ANN search, with PyTorch around hand-written CUDA kernels
 (``csrc/``).  It imports no jax.  Entry points that make tensors put them on
 the CUDA device unless a ``device`` argument says otherwise.
 
@@ -12,8 +13,10 @@ the CUDA device unless a ``device`` argument says otherwise.
 - ``tpu_lutvq_torch.models``  — QuantizedLinear, Llama decoder, INT8 KV cache
                                  (slab and paged), attention policy
 - ``tpu_lutvq_torch.runtime`` — ``generate()``, chunked prefill, the batcher,
-                                 perplexity (``runtime.eval``)
-- ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package
+                                 perplexity (``runtime.eval``), AQLM and
+                                 native checkpoint loading (``runtime.checkpoint``)
+- ``tpu_lutvq_torch.utils``   — parameters carried across from the JAX package,
+                                 the safetensors reader and writer
 - ``tpu_lutvq_torch.ann``     — PQ/RQ ANN search engine: k-means, f32/int8/int16
                                  table scans, refined search, SDC, OPQ
 """

@@ -97,3 +97,19 @@ def broadcast_codebook(cfg: VQConfig, codebook: torch.Tensor) -> torch.Tensor:
     if codebook.shape[0] == cfg.n_subvec:
         return codebook
     return codebook.expand((cfg.n_subvec,) + tuple(codebook.shape[1:]))
+
+
+def pack_codes_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 4-bit codes pairwise along the last axis into uint8 (the T-MAC
+    storage layout): ``(..., 2L)`` values in ``[0, 16)`` → ``(..., L)``, the
+    even index in the low nibble."""
+    lo = codes[..., 0::2].to(torch.uint8)
+    hi = codes[..., 1::2].to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_codes_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_nibbles`."""
+    lo = packed & 0xF
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)

@@ -57,7 +57,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lutvq_lut_gemv.argtypes = [vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
     lib.lutvq_lut_gemv.restype = i32
-    lib.lutvq_lut_scan.argtypes = [i32] + [vp] * 5 + [i32] * 10 + [vp]
+    lib.lutvq_lut_scan.argtypes = [i32, i32] + [vp] * 5 + [i32] * 10 + [vp]
     lib.lutvq_lut_scan.restype = i32
     lib.lutvq_dequant_mm.argtypes = [vp, vp, vp, vp, vp] + [i32] * 7 + [vp]
     lib.lutvq_dequant_mm.restype = i32

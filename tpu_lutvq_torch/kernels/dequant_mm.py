@@ -34,7 +34,12 @@ import torch.nn.functional as F
 from tpu_lutvq_torch.core.config import VQConfig
 from tpu_lutvq_torch.core.params import broadcast_codebook
 from tpu_lutvq_torch.kernels import _build
-from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, _apply_zero_points, _round_up
+from tpu_lutvq_torch.kernels.lut_gemv import (
+    PackedVQ,
+    _apply_zero_points,
+    _round_up,
+    local_view,
+)
 
 # kernel launches since the last reset (see module doc)
 DEQUANT_MM_LAUNCHES = 0  # bf16x2 tables
@@ -309,6 +314,14 @@ def dequant_matmul(
         raise ValueError(f"unknown dequant_matmul tables {tables!r} ({'|'.join(TABLES)})")
     if cfg.n_cluster > 256:
         raise ValueError("dequant_matmul supports K ≤ 256")
+    if packed.nibbles:
+        raise ValueError(
+            "dequant_matmul cannot read nibble-packed codes (T-MAC packing is a "
+            "lookup-kernel layout); pack with nibble_pack=False for this path"
+        )
+    if packed.out_group > 1:
+        raise ValueError("dequant_matmul cannot read out_group > 1 packs; use lut_gemv")
+    packed = local_view(packed)
     if cfg.d_subvec % 2 or (tables == "i8" and cfg.d_subvec % 4):
         tables = "f32"
     if tables == "i8":

@@ -1,6 +1,6 @@
 """Fused LUT lookup-accumulate GEMV (counterpart of ``tpu_lutvq.kernels.lut_gemv``).
 
-Semantics: ``y[b, j] = s[j] · Σ_g lut[b, g, codes_t[g, j]]``, in four
+Semantics: ``y[b, j] = s[j] · Σ_g lut[b, g, codes_t[g, j]]``, in five
 flavours of table, each a hand-written CUDA kernel for 1 to
 ``MAX_LUT_BATCH`` tokens per launch (larger batches are chunked):
 
@@ -14,13 +14,20 @@ flavours of table, each a hand-written CUDA kernel for 1 to
   :func:`lut_lookup_table`, counter ``LUT_GEMV_F32_LAUNCHES``;
 - ``i8``/``i16``: per-token range-quantized int8/int16 entries, exact
   integer sum, then the token's table scale — the same source and wrapper,
-  counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``.
+  counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``;
+- ``nibbles``/``nibbles_bpair`` (B=1 / B≥2), the only variants of a
+  nibble-packed (T-MAC, K=16) pack: two groups' 4-bit codes a byte, one
+  token's f32 table or 2-8 tokens' bf16 tables, f32 sum — the same source,
+  wrapper :func:`lut_lookup_nibbles`, counters
+  ``LUT_GEMV_NIBBLES_LAUNCHES``/``LUT_GEMV_NIBBLES_BPAIR_LAUNCHES``.
 
 A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
 raises; a CPU tensor takes the plain PyTorch version
-(:func:`lut_lookup_plain`, :func:`lut_lookup_int_plain`).
-:func:`lut_gemv_packed` runs the lookup over prebuilt tables (the ANN scan),
-:func:`lut_gemv` builds the tables from activations first.
+(:func:`lut_lookup_plain`, :func:`lut_lookup_int_plain`,
+:func:`lut_lookup_nibbles_plain`).  :func:`lut_gemv_packed` runs the lookup
+over prebuilt tables (the ANN scan), :func:`lut_gemv` builds the tables
+from activations first; an ``out_group`` pack (AQLM ``out_group_size``)
+runs as a pseudo-batch of one table per block row.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_lutvq_torch.core.config import VQConfig
-from tpu_lutvq_torch.core.params import VQParams
+from tpu_lutvq_torch.core.params import VQParams, pack_codes_nibbles, unpack_codes_nibbles
 from tpu_lutvq_torch.kernels import _build
 from tpu_lutvq_torch.kernels.lut_ctor import (
     LANE,
@@ -50,19 +57,25 @@ LUT_GEMV_PAIRF_LAUNCHES = 0  # f32 tables rounded to bf16 in the kernel
 LUT_GEMV_F32_LAUNCHES = 0
 LUT_GEMV_I8_LAUNCHES = 0
 LUT_GEMV_I16_LAUNCHES = 0
+LUT_GEMV_NIBBLES_LAUNCHES = 0  # nibble codes, f32 tables (J1)
+LUT_GEMV_NIBBLES_BPAIR_LAUNCHES = 0  # nibble codes, bf16 tables (J2)
 
 _TOKEN_TILES = (1, 2, 4, 8)
 _TILE_COLS = 512  # output columns per CUDA block (csrc/lut_gemv.cu kTileCols)
 _SCAN_TILE_COLS = 1024  # csrc/lut_scan.cu kTileCols
 _SCAN_STAGE_BYTES = 128 * 1024  # staged table slice per block (f32 G=16 K=256 B=8)
 _SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory, 1 KiB of it per block reserved
-# entry type → (kernel kind in csrc/lut_scan.cu, its launch counter)
+NIBBLE_K = 16  # table entries a group has under 4-bit codes
+# (entry type, nibble codes) → (kernel kind in csrc/lut_scan.cu, its counter)
 _SCAN_KINDS = {
-    torch.float32: (0, "LUT_GEMV_F32_LAUNCHES"),
-    torch.int8: (1, "LUT_GEMV_I8_LAUNCHES"),
-    torch.int16: (2, "LUT_GEMV_I16_LAUNCHES"),
+    (torch.float32, False): (0, "LUT_GEMV_F32_LAUNCHES"),
+    (torch.int8, False): (1, "LUT_GEMV_I8_LAUNCHES"),
+    (torch.int16, False): (2, "LUT_GEMV_I16_LAUNCHES"),
+    (torch.float32, True): (0, "LUT_GEMV_NIBBLES_LAUNCHES"),
+    (torch.bfloat16, True): (3, "LUT_GEMV_NIBBLES_BPAIR_LAUNCHES"),
 }
 VARIANTS = ("auto", "pair", "pairf", "bpair", "f32", "i8", "i16")
+NIBBLE_VARIANTS = ("nibbles", "nibbles_bpair")  # what a nibble pack resolves to
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,10 +87,17 @@ class PackedVQ:
     """Kernel-facing parameter layout, prepared once at load time.
 
     codes_t:  ``(G_pad, d_out_pad)`` uint8 — transposed, padded codes in
-              n-major group order (``g = n·M + m``, matching build_lut).
-    codebook: original ``(M_cb, N, K, d)`` float codebook (for LUT build).
+              n-major group order (``g = n·M + m``, matching build_lut);
+              ``(G_pad/2, d_out_pad)`` with ``nibbles``, row r holding group
+              2r in its low and 2r+1 in its high nibble.
+    codebook: original ``(M_cb, N, K, d)`` float codebook (for LUT build);
+              ``(out_group, N, K, d)`` with ``out_group > 1``, slice r holding
+              row r of every entry block.
     scales:   ``(1, d_out_pad)`` float32 or None.
-    d_out:    logical output dim (≤ d_out_pad).
+    d_out:    code columns (≤ d_out_pad); the layer's outputs are
+              ``full_d_out = d_out · out_group``.
+    shards:   column-parallel shards the pack was padded for (each shard's
+              chunk padded on its own); the kernels read one shard's chunk.
     zero_points: ``(1, d_out_pad)`` float32 or None (``W = s·W_q + z``).
     """
 
@@ -85,47 +105,128 @@ class PackedVQ:
     codebook: torch.Tensor
     scales: Optional[torch.Tensor]
     d_out: int
+    shards: int = 1
+    nibbles: bool = False
+    out_group: int = 1
     zero_points: Optional[torch.Tensor] = None
 
+    @property
+    def local_d_out(self) -> int:
+        """Valid outputs per shard (``d_out`` when unsharded)."""
+        return self.d_out // self.shards
 
-def pack_params(cfg: VQConfig, params: VQParams) -> PackedVQ:
+    @property
+    def full_d_out(self) -> int:
+        """Logical output dim (code columns × block rows per code)."""
+        return self.d_out * self.out_group
+
+
+def pack_params(
+    cfg: VQConfig,
+    params: VQParams,
+    block_j: int = DEFAULT_BLOCK_J,
+    shards: int = 1,
+    nibble_pack: bool = False,
+    out_group: int = 1,
+) -> PackedVQ:
     """Transpose codes to ``(G, d_out)`` (n-major groups) and pad: groups to a
-    multiple of 8, outputs to a multiple of 128 and, past 1024, to a multiple
-    of 1024 — the JAX package's layout (``lut_gemv.py:163-209``, one shard,
-    default block), so both packages consume the same arrays."""
+    multiple of 8, outputs to a multiple of 128 and, past ``block_j``, to a
+    multiple of it; with ``shards > 1`` each shard's chunk on its own (to 512
+    multiples past 512).  ``nibble_pack`` (4-bit codes) pads groups to 16
+    and packs two a byte.  Byte for byte the JAX package's layout
+    (``lut_gemv.py:140-236``), computed on the params' device."""
     d_out = params.codes.shape[0]
+    if d_out % shards:
+        raise ValueError(f"d_out={d_out} must divide by shards={shards}")
     if cfg.n_cluster > 256:
         raise ValueError(
-            f"pack_params stores uint8 codes; K={cfg.n_cluster} > 256 is not served"
+            f"pack_params stores uint8 codes; K={cfg.n_cluster} > 256 needs the "
+            "1x16 loader paths (runtime.checkpoint one_x16='refit'|'dequant'|'chunked')"
         )
     g_pad = _round_up(cfg.n_groups, 8)
-    d_out_pad = _round_up(d_out, LANE)
-    if d_out_pad > DEFAULT_BLOCK_J and d_out_pad % DEFAULT_BLOCK_J:
-        d_out_pad = _round_up(d_out_pad, DEFAULT_BLOCK_J)
     # (d_out, M, N) -> n-major (N, M, d_out) -> (G, d_out)
     codes_t = params.codes.permute(2, 1, 0).reshape(cfg.n_groups, d_out).to(torch.uint8)
-    codes_t = F.pad(codes_t, (0, d_out_pad - d_out, 0, g_pad - cfg.n_groups))
+    codes_t = F.pad(codes_t, (0, 0, 0, g_pad - cfg.n_groups))
+    scales = None if params.scales is None else params.scales.float().reshape(1, d_out)
+    zero_points = None
+    if params.zero_points is not None:
+        if out_group > 1:
+            raise ValueError("zero_points do not compose with out_group > 1")
+        zero_points = params.zero_points.float().reshape(1, d_out)
+    local = d_out // shards
+    if shards > 1:
+        local_pad = _round_up(local, 512 if local > 512 else LANE)
+    else:
+        local_pad = _round_up(local, LANE)
+        if local_pad > block_j and local_pad % block_j:
+            local_pad = _round_up(local_pad, block_j)
 
-    def row(v, fill):
-        if v is None:
+    def pad_chunks(arr, fill):
+        if arr is None:
             return None
-        return F.pad(v.float().reshape(1, d_out), (0, d_out_pad - d_out), value=fill)
+        return torch.cat([F.pad(arr[:, s * local : (s + 1) * local], (0, local_pad - local),
+                                value=fill) for s in range(shards)], dim=1)
 
+    codes_t = pad_chunks(codes_t, 0)
+    if nibble_pack:
+        if cfg.index_bits != 4:
+            raise ValueError("nibble_pack requires 4-bit codes (K=16)")
+        codes_t = F.pad(codes_t, (0, 0, 0, -codes_t.shape[0] % 16))
+        codes_t = pack_codes_nibbles(codes_t.T).T
+    if out_group > 1:
+        if shards > 1 or nibble_pack:
+            raise ValueError("out_group > 1 does not compose with shards/nibbles yet")
+        if params.codebook.shape[0] != out_group:
+            raise ValueError(
+                f"out_group={out_group} needs codebook (out_group, N, K, d); "
+                f"got leading dim {params.codebook.shape[0]}"
+            )
     return PackedVQ(
         codes_t=codes_t.contiguous(),
         codebook=params.codebook,
-        scales=row(params.scales, 1.0),
+        scales=pad_chunks(scales, 1.0),
         d_out=d_out,
-        zero_points=row(params.zero_points, 0.0),
+        shards=shards,
+        nibbles=nibble_pack,
+        out_group=out_group,
+        zero_points=pad_chunks(zero_points, 0.0),
     )
 
 
-def resolve_variant(variant: str, *, batch: int, k: int) -> str:
-    """Resolve "auto" as the JAX package does (``lut_gemv.py:239-247``):
-    ``pair`` at B=1, ``bpair`` at B ≥ 2; ``pair`` and ``pairf`` at K ≤ 128,
-    where there are no K halves to pack, become ``f32``."""
-    if variant not in VARIANTS:
+def _valid_width(packed: PackedVQ) -> int:
+    """Valid outputs of the array the kernels see (``lut_gemv.py:57-71``):
+    ``d_out``, or one shard's ``local_d_out`` when a shard pack's codes are
+    one shard's chunk; a whole shard pack is refused."""
+    if packed.shards == 1:
+        return packed.d_out
+    local = packed.local_d_out
+    lp = _round_up(local, 512 if local > 512 else LANE)
+    if packed.codes_t.shape[1] == lp:
+        return local
+    raise ValueError(
+        "shard-packed weights (shards>1) are read one shard's chunk at a time; "
+        f"got width {packed.codes_t.shape[1]}, expected per-shard {lp}"
+    )
+
+
+def local_view(packed: PackedVQ) -> PackedVQ:
+    """The pack as the kernels read it: a shard's chunk as an unsharded pack
+    of its ``local_d_out`` outputs."""
+    if packed.shards == 1:
+        return packed
+    return dataclasses.replace(packed, d_out=_valid_width(packed), shards=1)
+
+
+def resolve_variant(variant: str, *, nibbles: bool = False, batch: int, k: int) -> str:
+    """Resolve "auto" as the JAX package does (``lut_gemv.py:239-247``): a
+    nibble pack takes ``nibbles`` at B=1 and ``nibbles_bpair`` at B ≥ 2,
+    whatever was asked; otherwise ``pair`` at B=1, ``bpair`` at B ≥ 2, and
+    ``pair`` and ``pairf`` at K ≤ 128, where there are no K halves to pack,
+    become ``f32``."""
+    if variant not in VARIANTS + (NIBBLE_VARIANTS if nibbles else ()):
         raise ValueError(f"unknown lut_gemv variant {variant!r} ({'|'.join(VARIANTS)})")
+    if nibbles:
+        return "nibbles" if batch == 1 else "nibbles_bpair"
     if variant == "auto":
         variant = ("pair" if k > LANE else "f32") if batch == 1 else "bpair"
     if variant in ("pair", "pairf") and k <= LANE:
@@ -181,19 +282,21 @@ def lut_lookup_pairf(
     return _launch_pairf(lut, codes_t, scales, d_out)
 
 
-def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
-    """What both lookup kernels check and take: the table in (G, Kp, token)
+def _prepare(lut, codes_t, scales, d_out, tile_cols, name, per_row=1):
+    """What the lookup kernels check and take: the table in (G, Kp, token)
     layout, tokens padded to the kernel's tile, so that one load fetches
-    every token's entry; and G split until column tiles × splits fill the
-    card twice over.  Returns (table, token tile, SMs, column tiles, groups
-    per split, splits)."""
+    every token's entry; and the code rows (``per_row`` groups each) split
+    until column tiles × splits fill the card twice over.  Returns (table,
+    token tile, SMs, column tiles, code rows per split, splits)."""
     b, g, kp = lut.shape
     g_pad, d_out_pad = codes_t.shape
+    rows = g // per_row
+    kps = (NIBBLE_K,) if per_row == 2 else (LANE, 2 * LANE)
     if b > MAX_LUT_BATCH:
         raise ValueError(f"{name} kernel takes ≤ {MAX_LUT_BATCH} tokens, got {b}")
-    if kp not in (LANE, 2 * LANE):
-        raise ValueError(f"{name} kernel takes Kp in (128, 256), got {kp}")
-    if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
+    if kp not in kps:
+        raise ValueError(f"{name} kernel takes Kp in {kps}, got {kp}")
+    if rows > g_pad or d_out > d_out_pad or d_out_pad % LANE:
         raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
     bp = next(t for t in _TOKEN_TILES if t >= b)
     tab = lut.permute(1, 2, 0)  # at B=1 already (G, Kp, 1) in memory: no copy
@@ -206,8 +309,8 @@ def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
         _build.require_cuda_tensor(scales, "scales", torch.float32)
     n_tiles = -(-d_out_pad // tile_cols)
     sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
-    g_per_split = max(16, math.ceil(g / max(1, math.ceil(2 * sms / n_tiles))))
-    return tab, bp, sms, n_tiles, g_per_split, -(-g // g_per_split)
+    g_per_split = max(16, math.ceil(rows / max(1, math.ceil(2 * sms / n_tiles))))
+    return tab, bp, sms, n_tiles, g_per_split, -(-rows // g_per_split)
 
 
 def _launch(lut, codes_t, scales, d_out):
@@ -282,32 +385,73 @@ def lut_lookup_table(
     return _launch_table(lut, codes_t, scales, d_out)
 
 
-def _launch_table(lut, codes_t, scales, d_out):
-    if lut.dtype not in _SCAN_KINDS:
-        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, got {lut.dtype}")
-    kind, counter = _SCAN_KINDS[lut.dtype]
+def lut_lookup_nibbles_plain(
+    lut: torch.Tensor,
+    codes_t: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    d_out: int,
+) -> torch.Tensor:
+    """Plain version of the nibble kernels: ``(B, G, Kp)`` tables (f32, or
+    bf16 for ``nibbles_bpair``) and ``(G_pad/2, d_out_pad)`` nibble-packed
+    codes → ``(B, d_out)`` f32: the codes unpacked (row 2r the low, 2r+1 the
+    high nibbles), the table's entries gathered and summed in f32."""
+    b, g, _ = lut.shape
+    codes = unpack_codes_nibbles(codes_t[:, :d_out].T).T  # (G_pad, d_out)
+    idx = codes[:g].long().unsqueeze(0).expand(b, g, d_out)
+    y = torch.gather(lut[..., :NIBBLE_K].float(), 2, idx).sum(dim=1)
+    if scales is not None:
+        y = y * scales[:, :d_out]
+    return y
+
+
+def lut_lookup_nibbles(
+    lut: torch.Tensor,
+    codes_t: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    d_out: int,
+) -> torch.Tensor:
+    """The nibble kernels' wrapper (the table's type picks the kernel: f32
+    → ``nibbles``, bf16 → ``nibbles_bpair``): plain version for a CPU
+    tensor, the CUDA kernel for a CUDA tensor."""
+    if lut.device.type == "cpu":
+        return lut_lookup_nibbles_plain(lut, codes_t, scales, d_out)
+    return _launch_table(lut, codes_t, scales, d_out, nibbles=True)
+
+
+def _launch_table(lut, codes_t, scales, d_out, nibbles=False):
+    if (lut.dtype, nibbles) not in _SCAN_KINDS:
+        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, or f32 and bf16 "
+                         f"ones over nibble codes; got {lut.dtype} (nibbles={nibbles})")
+    kind, counter = _SCAN_KINDS[(lut.dtype, nibbles)]
+    per_row = 1
+    if nibbles:
+        # the 16 real entries of each group, and groups paired to code rows
+        # (an odd count gets a zero group for the last row's high nibble)
+        per_row, lut = 2, lut[..., :NIBBLE_K]
+        if lut.shape[1] % 2:
+            lut = F.pad(lut, (0, 0, 0, 1))
     b, g, kp = lut.shape
     d_out_pad = codes_t.shape[1]
     tab, bp, sms, n_tiles, g_per_split, n_splits = _prepare(
-        lut, codes_t, scales, d_out, _SCAN_TILE_COLS, "lut_scan")
+        lut, codes_t, scales, d_out, _SCAN_TILE_COLS, "lut_scan", per_row)
     # the whole G-slice staged once when it fits; blocks per SM as many as
     # the shared memory holds, and no more than there are column tiles
-    row_bytes = kp * bp * tab.element_size()
+    row_bytes = per_row * kp * bp * tab.element_size()
     stage_groups = min(g_per_split, _SCAN_STAGE_BYTES // row_bytes)
     per_sm = max(1, min(8, _SM_SHARED_BYTES // (stage_groups * row_bytes + 1024)))
     grid_x = min(n_tiles, per_sm * sms)
     ws = None
     if n_splits > 1:
-        acc = torch.float32 if lut.dtype == torch.float32 else torch.int32
+        acc = torch.int32 if lut.dtype in (torch.int8, torch.int16) else torch.float32
         ws = torch.empty((n_splits, bp, d_out_pad), dtype=acc, device=lut.device)
     out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
     lib = _build.library()
     err = lib.lutvq_lut_scan(
-        kind, tab.data_ptr(), codes_t.data_ptr(),
+        kind, int(nibbles), tab.data_ptr(), codes_t.data_ptr(),
         None if scales is None else scales.data_ptr(),
         None if ws is None else ws.data_ptr(), out.data_ptr(),
-        b, bp, g, kp, d_out, d_out_pad, g_per_split, n_splits, stage_groups, grid_x,
-        _build.stream_ptr(lut),
+        b, bp, g // per_row, kp, d_out, d_out_pad, g_per_split, n_splits, stage_groups,
+        grid_x, _build.stream_ptr(lut),
     )
     _build.check(lib, err, "lut_scan")
     globals()[counter] += 1
@@ -318,6 +462,10 @@ def _lookup(variant: str, lut: torch.Tensor, packed: PackedVQ, plain: bool) -> t
     """One chunk of ≤ ``MAX_LUT_BATCH`` tokens' f32 tables through the
     lookup of a resolved ``variant`` (``_lut_gemv_packed``'s dispatch)."""
     args = (packed.codes_t, packed.scales, packed.d_out)
+    if variant in NIBBLE_VARIANTS:
+        # f32 tables at one token, bf16 (the TPU's pair words) from two up
+        tab = lut if variant == "nibbles" else lut.to(torch.bfloat16)
+        return (lut_lookup_nibbles_plain if plain else lut_lookup_nibbles)(tab, *args)
     if variant == "pairf":
         if lut.shape[0] != 1:
             raise ValueError("pairf is the B=1 in-kernel-pack variant")
@@ -332,6 +480,11 @@ def _lookup(variant: str, lut: torch.Tensor, packed: PackedVQ, plain: bool) -> t
             return lut_lookup_plain(lut, *args, round_bf16=False)
         return lut_lookup_table(lut, *args)
     return (lut_lookup_plain if plain else lut_lookup)(lut, *args)
+
+
+def _check_k(cfg: VQConfig) -> None:
+    if cfg.n_cluster > 2 * LANE:
+        raise ValueError(f"lookup kernel supports K ≤ {2 * LANE}; got K={cfg.n_cluster}")
 
 
 def lut_gemv_packed(
@@ -350,12 +503,13 @@ def lut_gemv_packed(
     ``i8``/``i16`` quantize each token's tables over (G, Kp), sum the
     integers and multiply by the token's scale.  ``plain=True`` runs the
     plain versions on any device."""
-    if cfg.n_cluster > 2 * LANE:
-        raise ValueError(f"lookup kernel supports K ≤ {2 * LANE}; got K={cfg.n_cluster}")
+    _check_k(cfg)
+    packed = local_view(packed)
     outs = []
     for b0 in range(0, lut.shape[0], MAX_LUT_BATCH):
         chunk = lut[b0 : b0 + MAX_LUT_BATCH]
-        v = resolve_variant(variant, batch=chunk.shape[0], k=cfg.n_cluster)
+        v = resolve_variant(variant, nibbles=packed.nibbles, batch=chunk.shape[0],
+                            k=cfg.n_cluster)
         outs.append(_lookup(v, chunk, packed, plain))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
@@ -368,25 +522,51 @@ def lut_gemv(
     variant: str = "auto",
     plain: bool = False,
 ) -> torch.Tensor:
-    """Fused LUT-VQ matmul: ``(B, d_in) → (B, d_out)`` float32.
+    """Fused LUT-VQ matmul: ``(B, d_in) → (B, full_d_out)`` float32.
 
     Builds each chunk's LUTs as the JAX package does per variant (bf16
     inputs with f32 accumulation for the bf16 and int8 tables, f32 for the
-    ``f32`` and ``i16`` ones, whose precision a bf16 build would throw away)
-    and runs the lookup.  ``plain=True`` runs the plain versions on any
-    device — the reference a caller compares the kernel with; the default
-    never falls back."""
-    if cfg.n_cluster > 2 * LANE:
-        raise ValueError(f"lookup kernel supports K ≤ {2 * LANE}; got K={cfg.n_cluster}")
+    ``f32``, ``nibbles`` and ``i16`` ones, whose precision a bf16 build would
+    throw away) and runs the lookup.  ``plain=True`` runs the plain versions
+    on any device — the reference a caller compares the kernel with; the
+    default never falls back."""
+    _check_k(cfg)
+    packed = local_view(packed)
+    if packed.out_group > 1:
+        return _lut_gemv_out_group(cfg, packed, x, variant, plain)
     outs = []
     for b0 in range(0, x.shape[0], MAX_LUT_BATCH):
         xb = x[b0 : b0 + MAX_LUT_BATCH]
-        v = resolve_variant(variant, batch=xb.shape[0], k=cfg.n_cluster)
-        cdt = torch.float32 if v in ("f32", "i16") else torch.bfloat16
+        v = resolve_variant(variant, nibbles=packed.nibbles, batch=xb.shape[0],
+                            k=cfg.n_cluster)
+        cdt = torch.float32 if v in ("f32", "nibbles", "i16") else torch.bfloat16
         lut = build_lut(cfg, packed.codebook, xb, compute_dtype=cdt)
         outs.append(_lookup(v, lut, packed, plain))
     y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
     return _apply_zero_points(y, packed, x)
+
+
+def _lut_gemv_out_group(cfg, packed, x, variant, plain):
+    """AQLM ``out_group_size`` (``lut_gemv.py:912-941``): code column o
+    selects an (og, d) weight block, so block row r's tables come from
+    codebook slice r and the og tables of a token ride as a pseudo-batch
+    over the og-times-smaller code array; ``y[b, o·og + r]`` interleaves
+    them back.  The variant is resolved at the pseudo-batch's rows."""
+    og = packed.out_group
+    tokens_per = max(1, MAX_LUT_BATCH // og)
+    outs = []
+    for b0 in range(0, x.shape[0], tokens_per):
+        xb = x[b0 : b0 + tokens_per]
+        bc = xb.shape[0]
+        v = resolve_variant(variant, batch=bc * og, k=cfg.n_cluster)
+        cdt = torch.float32 if v == "f32" else torch.bfloat16
+        luts = [build_lut(cfg, packed.codebook[r : r + 1], xb, compute_dtype=cdt)
+                for r in range(og)]
+        lut = torch.stack(luts, dim=1).reshape(bc * og, *luts[0].shape[1:])
+        out = torch.cat([_lookup(v, lut[i : i + MAX_LUT_BATCH], packed, plain)
+                         for i in range(0, bc * og, MAX_LUT_BATCH)])
+        outs.append(out.reshape(bc, og, -1).transpose(1, 2).reshape(bc, -1))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def _apply_zero_points(y: torch.Tensor, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:

@@ -41,9 +41,15 @@ class LlamaConfig:
     shared_codebook: bool = True  # layer-wide codebooks, as AQLM checkpoints ship
     kv_dtype: str = "int8"  # "int8" | "bf16"
     kv_scale_dtype: str = "f32"  # "f32" | "bf16"
+    # head_dim when it is not hidden // n_heads (the JAX package sets it for
+    # a tensor-parallel shard's config); a field of both packages' native
+    # checkpoint config
+    head_dim_override: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.hidden // self.n_heads
 
     @property

@@ -1,5 +1,6 @@
 """Parameter, cache-state and ANN-state conversion from the JAX package
-(numpy in, torch out)."""
+(numpy in, torch out); the safetensors reader and writer and the numpy
+layout helpers of the checkpoint loader."""
 
 from tpu_lutvq_torch.utils.convert import (  # noqa: F401
     kv_caches_from_numpy,

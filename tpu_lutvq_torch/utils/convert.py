@@ -32,11 +32,8 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 
 
 def packed_from_numpy(p, device="cuda") -> PackedVQ:
-    """A JAX ``PackedVQ`` (numpy leaves) → the port's ``PackedVQ``."""
-    if getattr(p, "shards", 1) != 1 or getattr(p, "nibbles", False) or getattr(
-        p, "out_group", 1
-    ) != 1:
-        raise NotImplementedError("shard, nibble and out_group packs are not ported")
+    """A JAX ``PackedVQ`` (numpy leaves) → the port's, nibble, out_group
+    and shard packs included."""
 
     def opt(a):
         return None if a is None else tensor_from_numpy(a, device)
@@ -46,6 +43,9 @@ def packed_from_numpy(p, device="cuda") -> PackedVQ:
         codebook=tensor_from_numpy(p.codebook, device),
         scales=opt(p.scales),
         d_out=int(p.d_out),
+        shards=int(p.shards),
+        nibbles=bool(p.nibbles),
+        out_group=int(p.out_group),
         zero_points=opt(p.zero_points),
     )
 
