@@ -8,8 +8,10 @@ Phases, one result line each; any failure raises and exits non-zero:
   1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
      parallel, sm_90a), link and load;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
-     inputs, error and CUDA-event median times, at the shapes its path gives
-     it: the projections at the Llama-2-7B shapes and a padded d_out; flash
+     inputs, error, CUDA-event median times and profiler device times, at
+     the shapes its path gives it: the projections at the Llama-2-7B shapes
+     and a padded d_out (the bf16x2 dequant-matmul at 7/8/16/256/1024 rows,
+     and with per-subvector codebooks at 8/256); flash
      decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
      layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
      flash prefill at the chunked-admission and ragged-wave shapes, bf16 KV
@@ -19,14 +21,17 @@ Phases, one result line each; any failure raises and exits non-zero:
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
      int8, int16) a 7B projection; the precision tiers at the 7B projection
      shapes: the W8A8 dequant-matmul at 7/8/16/256 rows, the f32 one at
-     7/256 rows, ``pairf`` at one token; the T-MAC W4 nibble lookups (J1
-     at one token's f32 table, J2 at 2, 8 and 16 tokens' bf16 tables) at
-     the 7B projection shapes and 4096 -> 28672.  Wrong-rounding controls
-     must fail each kernel's tolerance (the int8 and int16 lookups and the
-     W8A8 matmul must equal their plain versions, ``pairf`` the ``pair``
-     kernel; truncating instead of rounding must not).  Each row
-     also times one PyTorch library call computing the same function and
-     states the least time the card could take (bytes or operations);
+     7/256/1024 rows (and at 8/256 with per-subvector codebooks and with
+     d_subvec 3, its general path), ``pairf`` at one token; both dequant
+     kernels give bit-equal outputs from two calls; the T-MAC W4 nibble
+     lookups (J1 at one token's f32 table, J2 at 2, 8 and 16 tokens' bf16
+     tables) at the 7B projection shapes and 4096 -> 28672.  Wrong-rounding
+     controls must fail each kernel's tolerance (the int8 and int16 lookups
+     and the W8A8 matmul must equal their plain versions, ``pairf`` the
+     ``pair`` kernel; truncating instead of rounding must not).  Each row
+     also times one PyTorch library call computing the same function (events
+     and device) and states the least time the card could take (bytes or
+     operations);
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
      serves (a) a ragged batch of 4 prompts for 32 new tokens and (b) one
      16-token prompt for 16 new tokens through ``generate()``; both kernels
@@ -148,7 +153,16 @@ SHAPES = (  # (d_in, d_out): the Llama-2-7B projections, and a padded d_out
     (4096, 4096), (4096, 11008), (11008, 4096), (4096, 1100),
 )
 LUT_BATCHES = (1, 2, 3, 4, 8)  # decode rows: 1 token tile, ragged and full
-DEQUANT_ROWS = (7, 16, 256)  # prefill rows: partial and full 64-row tiles
+# C's rows: phase 2's 7 and 16, the batcher's 8 decode rows (every tick of
+# phase 4), phase 3's 256 prefill rows, phase 6 (c)'s 1024 scoring rows.
+# Each tile of csrc/dequant_mm.cu (8, 16, 64 rows) and its split-K meet
+# these; two calls must give bit-equal outputs (the split sums in order).
+DEQUANT_ROWS = (7, 8, 16, 256, 1024)
+# C and L with per-subvector codebooks (streamed through the kernels' rings)
+# and L at an odd d_subvec (its general path): (name, d_in, d_out, d_subvec,
+# shared codebook) at PATH_ROWS
+PATH_CASES = (("per-subvector", 4096, 4096, 8, False), ("d_subvec=3", 4095, 4096, 3, False))
+PATH_ROWS = (8, 256)
 # The precision tiers (phase 2).  W8A8 (dequant_mm_i8): 7 prefill rows, the
 # batcher's 8 decode rows, partial and full 64-row tiles; it sums integers
 # exactly, so kernel and plain version must be equal.  f32 (dequant_mm_f32):
@@ -156,7 +170,7 @@ DEQUANT_ROWS = (7, 16, 256)  # prefill rows: partial and full 64-row tiles
 # 1.77-3.73e-6 against >= 2.09e-3 for the bf16x2 control (PERF.md).  pairf
 # (lut_gemv_pairf): equal to the pair kernel, within 1e-5 of plain.
 I8_ROWS = (7, 8, 16, 256)
-F32_ROWS = (7, 256)
+F32_ROWS = (7, 256, 1024)  # phase 6 (c) scores 4 x 256 tokens: 1024 rows
 TIER_TOL = {"dequant_mm_i8": 0.0, "dequant_mm_f32": 1e-5, "lut_gemv_pairf": 1e-5}
 EVAL_B, EVAL_T = 4, 256  # phase 6 (c): sequences scored under each tier
 # Kernel J, the T-MAC W4 nibble lookups (phase 2 rows and phase 7): the
@@ -296,6 +310,16 @@ def device_ms(fn, calls=20):
                if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
 
 
+def kernel_times(kernel, plain, library, reps=10, plain_reps=5):
+    """A row's times: the kernel's wrapper and the library call by CUDA
+    events (``ms``, ``library_ms``; the host's dispatch included) and by the
+    profiler (``device_ms``, ``library_device_ms``: the card's kernels
+    alone), the plain version by events."""
+    return dict(ms=time_ms(kernel, reps=reps), device_ms=device_ms(kernel, calls=10),
+                plain_ms=time_ms(plain, reps=plain_reps), library_ms=time_ms(library, reps=reps),
+                library_device_ms=device_ms(library, calls=10))
+
+
 def attention_modules():
     return (importlib.import_module("tpu_lutvq_torch.kernels.flash_decode"),
             importlib.import_module("tpu_lutvq_torch.kernels.flash_prefill"))
@@ -330,8 +354,9 @@ def with_bound(row, n_bytes, ops, kind):
 
 
 def times(r):
-    return (f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
-            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return (f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  plain {r['plain_ms']:.4f} "
+            f"ms  library {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def dense_bf16(cfg, packed):
@@ -462,11 +487,11 @@ def phase_build():
 def phase_kernels(device):
     """Each kernel against its plain version on the same inputs, and a
     control with the wrong rounding that the tolerance must reject."""
-    from tpu_lutvq_torch import aqlm_2x8, init_vq_params
+    from tpu_lutvq_torch import VQConfig, aqlm_2x8, init_vq_params
     from tpu_lutvq_torch.kernels.lut_ctor import build_lut
 
     lg, dq = kernel_modules()
-    lut_control, dq_control = lut_lookup_variant(exact=False), dequant_mm_variant(exact=False)
+    lut_control = lut_lookup_variant(exact=False)
 
     gen = torch.Generator(device).manual_seed(1234)
     rows = {"lut_gemv": [], "dequant_mm": []}
@@ -484,33 +509,52 @@ def phase_kernels(device):
             rows["lut_gemv"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} B={b}", rel=rel_err(got, want),
                 abs=float((got - want).abs().max()), control=rel_err(lut_control(*args), want),
-                ms=time_ms(lambda: lg.lut_lookup(*args)),
-                plain_ms=time_ms(lambda: lg.lut_lookup_plain(*args)),
-                library_ms=time_ms(lambda: xb @ w.T),
+                **kernel_times(lambda: lg.lut_lookup(*args), lambda: lg.lut_lookup_plain(*args),
+                               lambda: xb @ w.T, reps=20, plain_reps=20),
             ), nbytes(*args[:3], got), b * cfg.n_groups * d_out, "f32"))
         for r in DEQUANT_ROWS:
-            x = torch.randn((r, d_in), generator=gen, device=device)
-            got, want = dq.dequant_mm_bf16x2(cfg, packed, x), dq.dequant_mm_plain(cfg, packed, x)
-            torch.cuda.synchronize()
-            xb = x.to(torch.bfloat16)
-            rows["dequant_mm"].append(with_bound(dict(
-                shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
-                abs=float((got - want).abs().max()),
-                control=rel_err(dq_control(cfg, packed, x), want),
-                ms=time_ms(lambda: dq.dequant_mm_bf16x2(cfg, packed, x), reps=10),
-                plain_ms=time_ms(lambda: dq.dequant_mm_plain(cfg, packed, x), reps=10),
-                library_ms=time_ms(lambda: xb @ w.T, reps=10),
-            ), nbytes(x, packed.codes_t, packed.codebook, packed.scales, got),
-                2 * r * d_in * d_out, "bf16"))
+            rows["dequant_mm"].append(dequant_row(f"{d_in}x{d_out} rows={r}", cfg, packed, w,
+                                                  r, gen))
+        del w, packed
+    for name, d_in, d_out, d, shared in PATH_CASES:
+        if d != 8:
+            continue  # C takes d_subvec 8 only
+        cfg = VQConfig(d_in, d_in // d, 2, 256, shared_codebook=shared)
+        packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
+        w = dense_bf16(cfg, packed)
+        for r in PATH_ROWS:
+            rows["dequant_mm"].append(dequant_row(f"{name} {d_in}x{d_out} rows={r}", cfg,
+                                                  packed, w, r, gen))
+        del w, packed
     for name, rs in rows.items():
         tol = KERNEL_TOL[name]
         for r in rs:
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
-                  + times(r))
+                  + times(r) + (f"  two calls bit-equal {r['equal']}" if "equal" in r else ""))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
+            check(r.get("equal", True), f"{name} {r['shape']}: two calls differ")
     return rows
+
+
+def dequant_row(shape, cfg, packed, w, r, gen):
+    """C against its plain version at ``r`` rows, the wrong-rounding control,
+    and two calls bit for bit."""
+    _, dq = kernel_modules()
+    x = torch.randn((r, cfg.d_in), generator=gen, device=w.device)
+    got, again = dq.dequant_mm_bf16x2(cfg, packed, x), dq.dequant_mm_bf16x2(cfg, packed, x)
+    want = dq.dequant_mm_plain(cfg, packed, x)
+    torch.cuda.synchronize()
+    xb = x.to(torch.bfloat16)
+    return with_bound(dict(
+        shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
+        control=rel_err(dequant_mm_variant(exact=False)(cfg, packed, x), want),
+        equal=bool(torch.equal(got, again)),
+        **kernel_times(lambda: dq.dequant_mm_bf16x2(cfg, packed, x),
+                       lambda: dq.dequant_mm_plain(cfg, packed, x), lambda: xb @ w.T),
+    ), nbytes(x, packed.codes_t, packed.codebook, packed.scales, got),
+        2 * r * cfg.d_in * packed.d_out, "bf16")
 
 
 @contextlib.contextmanager
@@ -560,8 +604,8 @@ def table_row(shape, cfg, packed, lut, variant, library, wrapper=None):
     }.get(variant, (lg.lut_lookup_table, lg.lut_lookup_int_plain))
     args = (tab, packed.codes_t, packed.scales, packed.d_out)
     row = dict(shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
-               control=rel_err(control, want), ms=time_ms(lambda: kernel(*args)),
-               plain_ms=time_ms(lambda: plain(*args), reps=5), library_ms=time_ms(library))
+               control=rel_err(control, want),
+               **kernel_times(lambda: kernel(*args), lambda: plain(*args), library, reps=20))
     if wrapper is not None:
         kernel_path, plain_path = wrapper
         y, y_plain = kernel_path(), plain_path()
@@ -659,7 +703,7 @@ def phase_tiers(device):
     against the bf16x2 function; ``pairf`` (M) equal to the ``pair``
     kernel (A) on the same f32 table, against f32 entries (K's function).
     ``wrapper_ms`` times the whole ``dequant_matmul``/``lut_gemv`` call."""
-    from tpu_lutvq_torch import aqlm_2x8, init_vq_params
+    from tpu_lutvq_torch import VQConfig, aqlm_2x8, init_vq_params
     from tpu_lutvq_torch.kernels.lut_ctor import build_lut
 
     lg, dq = kernel_modules()
@@ -691,29 +735,17 @@ def phase_tiers(device):
                 shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
                 equal=bool(torch.equal(got, want)), abs=float((got - want).abs().max()),
                 control=rel_err(control, want), wrapper_rel=rel_err(y, y_plain),
-                ms=time_ms(lambda: dq.dequant_mm_i8(*args), reps=10),
-                plain_ms=time_ms(lambda: dq.dequant_mm_i8_plain(*args), reps=5),
-                library_ms=time_ms(library, reps=10), library=call,
+                **kernel_times(lambda: dq.dequant_mm_i8(*args),
+                               lambda: dq.dequant_mm_i8_plain(*args), library),
+                library=call,
                 wrapper_ms=time_ms(lambda: dq.dequant_matmul(cfg, packed, x, tables="i8"),
                                    reps=10),
             ), nbytes(x_i8, xs, packed.codes_t, q, packed.scales, got),
                 2 * r * x2.shape[1] * d_out, "int8"))
         del w_i8
-        w_f32 = dq.dequant_weight(cfg, packed, round_bf16=False)
         for r in F32_ROWS:
-            x = torch.randn((r, d_in), generator=gen, device=device)
-            got, want = dq.dequant_mm_f32(cfg, packed, x), dq.dequant_mm_f32_plain(cfg, packed, x)
-            torch.cuda.synchronize()
-            rows["dequant_mm_f32"].append(with_bound(dict(
-                shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
-                abs=float((got - want).abs().max()),
-                control=rel_err(dq.dequant_mm_plain(cfg, packed, x), want),
-                ms=time_ms(lambda: dq.dequant_mm_f32(cfg, packed, x), reps=10),
-                plain_ms=time_ms(lambda: dq.dequant_mm_f32_plain(cfg, packed, x), reps=5),
-                library_ms=time_ms(lambda: x @ w_f32.T, reps=10), library="x @ W.T f32",
-            ), nbytes(x, packed.codes_t, packed.codebook.float(), packed.scales, got),
-                2 * r * d_in * d_out, "f32"))
-        del w_f32
+            rows["dequant_mm_f32"].append(f32_row(f"{d_in}x{d_out} rows={r}", cfg, packed, r,
+                                                  gen))
         x = torch.randn((1, d_in), generator=gen, device=device)
         lut = build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16)
         args = (lut, packed.codes_t, packed.scales, packed.d_out)
@@ -727,13 +759,20 @@ def phase_tiers(device):
             equal=bool(torch.equal(got, pair)) and bool(torch.equal(y, y_pair)),
             abs=float((got - want).abs().max()),
             control=rel_err(lg.lut_lookup_plain(*args, round_bf16=False), want),
-            ms=time_ms(lambda: lg.lut_lookup_pairf(*args)),
-            pair_ms=time_ms(lambda: lg.lut_lookup(*args)),
-            plain_ms=time_ms(lambda: lg.lut_lookup_plain(*args)),
-            library_ms=time_ms(lambda: xb @ w_bf16.T), library="x @ W.T bf16",
+            **kernel_times(lambda: lg.lut_lookup_pairf(*args),
+                           lambda: lg.lut_lookup_plain(*args), lambda: xb @ w_bf16.T, reps=20,
+                           plain_reps=20),
+            pair_ms=time_ms(lambda: lg.lut_lookup(*args)), library="x @ W.T bf16",
             wrapper_ms=time_ms(lambda: lg.lut_gemv(cfg, packed, x, variant="pairf")),
         ), nbytes(*args[:3], got), cfg.n_groups * d_out, "f32"))
         del w_bf16
+    for name, d_in, d_out, d, shared in PATH_CASES:
+        cfg = VQConfig(d_in, d_in // d, 2, 256, shared_codebook=shared)
+        packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
+        for r in PATH_ROWS:
+            rows["dequant_mm_f32"].append(f32_row(f"{name} {d_in}x{d_out} rows={r}", cfg,
+                                                  packed, r, gen))
+        del packed
     for name, rs in rows.items():
         tol = TIER_TOL[name]
         for r in rs:
@@ -742,6 +781,8 @@ def phase_tiers(device):
                 extra = f"  whole call {r['wrapper_ms']:.4f} ms"
             if "pair_ms" in r:
                 extra += f"  pair kernel {r['pair_ms']:.4f} ms"
+            if name == "dequant_mm_f32":
+                extra += f"  two calls bit-equal {r['equal']}"
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
                   + times(r) + f" [library: {r['library']}]" + extra)
@@ -751,6 +792,26 @@ def phase_tiers(device):
             check(r.get("wrapper_rel", 0.0) == 0.0,
                   f"{name} {r['shape']}: dequant_matmul differs from plain: {r.get('wrapper_rel')}")
     return rows
+
+
+def f32_row(shape, cfg, packed, r, gen):
+    """L against its plain version at ``r`` rows, the bf16x2 function as the
+    control, and two calls bit for bit (``equal``)."""
+    _, dq = kernel_modules()
+    x = torch.randn((r, cfg.d_in), generator=gen, device=packed.codes_t.device)
+    got, again = dq.dequant_mm_f32(cfg, packed, x), dq.dequant_mm_f32(cfg, packed, x)
+    want = dq.dequant_mm_f32_plain(cfg, packed, x)
+    torch.cuda.synchronize()
+    w_f32 = dq.dequant_weight(cfg, packed, round_bf16=False)
+    return with_bound(dict(
+        shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
+        control=rel_err(dq.dequant_mm_plain(cfg, packed, x), want),
+        equal=bool(torch.equal(got, again)),
+        **kernel_times(lambda: dq.dequant_mm_f32(cfg, packed, x),
+                       lambda: dq.dequant_mm_f32_plain(cfg, packed, x), lambda: x @ w_f32.T),
+        library="x @ W.T f32",
+    ), nbytes(x, packed.codes_t, packed.codebook.float(), packed.scales, got),
+        2 * r * cfg.d_in * packed.d_out, "f32")
 
 
 def tmac_layer(gen, d_in, d_out):
@@ -804,11 +865,9 @@ def phase_nibbles(device):
                 rows[name].append(with_bound(dict(
                     shape=f"tmac {d_in}x{d_out} B={b}", rel=rel_err(got, want),
                     abs=float((got - want).abs().max()), control=rel_err(control, want),
-                    ms=time_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut)),
-                    device_ms=device_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut)),
-                    plain_ms=time_ms(lambda: lg.lut_gemv_packed(cfg, packed, lut, plain=True),
-                                     reps=5),
-                    library_ms=time_ms(lambda: xb @ w.T),
+                    **kernel_times(lambda: lg.lut_gemv_packed(cfg, packed, lut),
+                                   lambda: lg.lut_gemv_packed(cfg, packed, lut, plain=True),
+                                   lambda: xb @ w.T, reps=20),
                     wrapper_ms=time_ms(lambda: lg.lut_gemv(cfg, packed, x)),
                 ), n_bytes, b * cfg.n_groups * d_out, "f32"))
                 del lut, got, want, control
@@ -817,8 +876,7 @@ def phase_nibbles(device):
         for r in rs:
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol "
                   f"{NIBBLE_TOL:.0e}, wrong-precision control {r['control']:.3e}) abs err "
-                  f"{r['abs']:.3e}  " + times(r) + f"  device {r['device_ms']:.4f} ms  whole "
-                  f"lut_gemv {r['wrapper_ms']:.4f} ms")
+                  f"{r['abs']:.3e}  " + times(r) + f"  whole lut_gemv {r['wrapper_ms']:.4f} ms")
             check(r["rel"] <= NIBBLE_TOL, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["control"] > NIBBLE_TOL, f"{name} {r['shape']}: tolerance passes the control")
     return rows
@@ -886,8 +944,8 @@ def attention_row(shape, kernel, plain, dh, library, work):
             controls[c] = rel_err(plain(), want)
     return with_bound(dict(
         shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
-        control=controls, ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10),
-        library_ms=time_ms(library)), *work, "bf16")
+        control=controls, **kernel_times(kernel, plain, library, reps=20, plain_reps=10)),
+        *work, "bf16")
 
 
 def dequant_kv(cache, rows, rep):
@@ -2113,8 +2171,9 @@ def main(mode=None):
         summary.append(dict(
             name=name, **meta, launches=launches[name],
             max_abs_err=max(r["abs"] for r in rows[name]),
-            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
-            bound_by=at["bound_by"], library_ms=at["library_ms"], at=at["shape"],
+            ms=at["ms"], device_ms=at["device_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=at["library_ms"],
+            library_device_ms=at["library_device_ms"], at=at["shape"],
         ))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

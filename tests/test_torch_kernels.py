@@ -265,7 +265,9 @@ def test_quantized_linear_explicit_variants():
         assert rel_err(y.numpy(), dense.numpy()) <= tol, variant
 
 
-@pytest.mark.parametrize("batch", [8, 16])
+# 7: phase 2's odd rows; 8: the batcher's decode rows; 16; 300: a prefill
+# width past the kernel's 64-row tiles
+@pytest.mark.parametrize("batch", [7, 8, 16, 300])
 def test_dequant_matmul_bf16x2_matches(batch):
     jcfg, tcfg, jp, tp = make_params(256, 384, shared=True, seed=batch)
     x = np.random.default_rng(20 + batch).standard_normal((batch, 256)).astype(np.float32)

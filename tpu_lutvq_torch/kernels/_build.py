@@ -59,11 +59,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_lut_gemv.restype = i32
     lib.lutvq_lut_scan.argtypes = [i32, i32] + [vp] * 5 + [i32] * 10 + [vp]
     lib.lutvq_lut_scan.restype = i32
-    lib.lutvq_dequant_mm.argtypes = [vp, vp, vp, vp, vp] + [i32] * 7 + [vp]
+    lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm.restype = i32
     lib.lutvq_dequant_mm_i8.argtypes = [vp] * 7 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm_i8.restype = i32
-    lib.lutvq_dequant_mm_f32.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    lib.lutvq_dequant_mm_f32.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm_f32.restype = i32
     lib.lutvq_flash_decode.argtypes = [vp] * 8 + [i32] * 9 + [ctypes.c_float, vp]
     lib.lutvq_flash_decode.restype = i32

@@ -23,10 +23,16 @@ hand-written CUDA kernel with its plain PyTorch version beside it:
 
 A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
 raises; a CPU tensor takes the plain version.  :func:`dequant_matmul`
-picks the tables and adds the zero points.
+picks the tables and adds the zero points.  The bf16x2 and f32 kernels
+pick their tile by rows and split d_in across blocks when the output tiles
+cannot fill the card; :func:`plan_bf16x2` and :func:`plan_f32` work the
+split out in Python, and the kernels sum the splits in split order.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +63,21 @@ _I8_TILE = 64  # csrc/dequant_mm_i8.cu kBM = kBN: rows and columns per block
 _I8_BLOCKS_PER_SM = 6
 _I8_MIN_SPLIT_STEPS = 4
 _KERNEL_MAX_CODEBOOKS = 2
+# csrc/dequant_mm.cu's tiles, chosen by rows: (most rows, output columns a
+# block, rows a block, blocks an SM holds); above 16 rows x goes in as bf16
+_BF16X2_TILES = ((8, 128, 8, 4), (16, 128, 16, 4), (None, 256, 64, 2))
+# subvectors a k-step: a shared codebook is staged once, per-subvector ones
+# ride the ring two subvectors a stage
+_BF16X2_STEP = {True: 8, False: 2}
+# csrc/dequant_mm_f32.cu's tiles: 32 or 128 rows by 128 columns, 16 inputs a
+# step; its fast path takes d_subvec 4, 8, 16 with ≤ 2 codebooks
+_F32_TILES = ((32, 128, 32, 2), (None, 128, 128, 2))
+_F32_STEP = 16
+_F32_FAST_D_SUBVEC = (4, 8, 16)
+# d_in is split across blocks when the output tiles leave SM slots empty,
+# each split at least this many k-steps long
+_MIN_SPLIT_STEPS = 4
+_CB_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def dequant_weight(cfg: VQConfig, packed: PackedVQ, round_bf16: bool = True) -> torch.Tensor:
@@ -80,9 +101,75 @@ def _scaled(y: torch.Tensor, packed: PackedVQ) -> torch.Tensor:
 
 def _check_codes(cfg: VQConfig, packed: PackedVQ) -> tuple[int, int]:
     g_pad, d_out_pad = packed.codes_t.shape
-    if g_pad < cfg.n_groups or d_out_pad < packed.d_out:
+    if g_pad < cfg.n_groups or d_out_pad < packed.d_out or d_out_pad % 16:
         raise ValueError(f"codes_t {tuple(packed.codes_t.shape)} does not cover {cfg}")
     return g_pad, d_out_pad
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How a dequant kernel cuts its work: the tile ``config`` (an index
+    into the kernel's tiles), the block's rows and columns, d_in as
+    ``steps`` k-steps of ``step`` units (subvectors or inputs), and the
+    ``n_splits`` blocks along d_in, each ``split_steps`` k-steps long (the
+    last one shorter)."""
+
+    config: int
+    block_rows: int
+    block_cols: int
+    step: int
+    steps: int
+    split_steps: int
+    n_splits: int
+    rows: int
+    d_out: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (-(-self.d_out // self.block_cols), -(-self.rows // self.block_rows),
+                self.n_splits)
+
+    def split_ranges(self) -> list[tuple[int, int]]:
+        """Each split's k-steps, ``[first, end)``, in the order the reduce sums them."""
+        return [(s * self.split_steps, min(self.steps, (s + 1) * self.split_steps))
+                for s in range(self.n_splits)]
+
+
+def _plan(tiles, rows, d_out, step, steps, sms) -> SplitPlan:
+    config = next(i for i, t in enumerate(tiles) if t[0] is None or rows <= t[0])
+    _, cols, brows, per_sm = tiles[config]
+    n_tiles = -(-d_out // cols) * -(-rows // brows)
+    slots = per_sm * sms
+    n_splits = 1
+    if n_tiles < slots:
+        # waves of blocks times a block's share of d_in, over at most two
+        # waves' worth of splits (each split writes and reads its partials):
+        # the fewest splits within 5 % of the least
+        most = min(max(1, steps // _MIN_SPLIT_STEPS), 2 * -(-slots // n_tiles))
+        cost = {n: -(-n_tiles * n // slots) / n for n in range(1, most + 1)}
+        n_splits = min(n for n, c in cost.items() if c <= 1.05 * min(cost.values()))
+    split_steps = -(-steps // n_splits)
+    return SplitPlan(config, brows, cols, step, steps, split_steps, -(-steps // split_steps),
+                     rows, d_out)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bf16x2(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int) -> SplitPlan:
+    """``csrc/dequant_mm.cu``'s plan for ``rows`` × ``n_subvec`` subvectors →
+    ``d_out`` on ``sms`` SMs; its k-steps count subvectors."""
+    step = _BF16X2_STEP[shared]
+    return _plan(_BF16X2_TILES, rows, d_out, step, -(-n_subvec // step), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_f32(rows: int, d_in: int, d_out: int, sms: int) -> SplitPlan:
+    """``csrc/dequant_mm_f32.cu``'s plan; its k-steps count inputs."""
+    return _plan(_F32_TILES, rows, d_out, _F32_STEP, -(-d_in // _F32_STEP), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---- bf16x2 tables -------------------------------------------------------------
@@ -114,19 +201,32 @@ def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x.device)
     if r == 0:
         return out
-    xb = x.to(torch.bfloat16).contiguous()
-    cb = packed.codebook.to(torch.bfloat16).contiguous()  # (M_cb, N, K, d)
-    _build.require_cuda_tensor(xb, "x", torch.bfloat16)
-    _build.require_cuda_tensor(cb, "codebook", torch.bfloat16)
+    # up to 16 rows the kernel reads x in f32 and rounds it; wider tiles read bf16
+    xk = x.to(torch.float32 if r <= _BF16X2_TILES[1][0] else torch.bfloat16).contiguous()
+    _build.require_cuda_tensor(xk, "x", xk.dtype)
+    shared = packed.codebook.shape[0] == 1
+    cb = packed.codebook
+    if not shared:
+        cb = cb.to(torch.bfloat16)  # streamed through the kernel's ring as bf16
+    elif cb.dtype not in _CB_DTYPES:
+        cb = cb.float()  # the kernel rounds a shared one to bf16 as it stages it
+    cb = cb.contiguous()  # (M_cb, N, K, d)
+    _build.require_cuda_tensor(cb, "codebook", cb.dtype)
     _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
+    plan = plan_bf16x2(r, cfg.n_subvec, packed.d_out, shared, _sms(x.device))
+    part = None
+    if plan.n_splits > 1:
+        part = torch.empty((plan.n_splits, r, d_out_pad), dtype=torch.float32, device=x.device)
     lib = _build.library()
     err = lib.lutvq_dequant_mm(
-        xb.data_ptr(), packed.codes_t.data_ptr(), cb.data_ptr(),
-        None if packed.scales is None else packed.scales.data_ptr(),
-        out.data_ptr(), r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster,
-        int(cb.shape[0] == 1), packed.d_out, d_out_pad, _build.stream_ptr(x),
+        xk.data_ptr(), packed.codes_t.data_ptr(), cb.data_ptr(),
+        None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster, int(shared), _CB_DTYPES[cb.dtype],
+        plan.config, packed.d_out, d_out_pad, plan.split_steps * plan.step, plan.n_splits,
+        _build.stream_ptr(x),
     )
     _build.check(lib, err, "dequant_mm")
     DEQUANT_MM_LAUNCHES += 1
@@ -283,12 +383,19 @@ def _launch_f32(cfg, packed, x):
     _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
+    plan = plan_f32(r, cfg.d_in, packed.d_out, _sms(x.device))
+    fast = cfg.d_subvec in _F32_FAST_D_SUBVEC and cfg.n_codebook <= _KERNEL_MAX_CODEBOOKS
+    part = None
+    if plan.n_splits > 1:
+        part = torch.empty((plan.n_splits, r, d_out_pad), dtype=torch.float32, device=x.device)
     lib = _build.library()
     err = lib.lutvq_dequant_mm_f32(
         xf.data_ptr(), packed.codes_t.data_ptr(), cb.data_ptr(),
         None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
-        r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster, cfg.d_subvec,
-        int(cb.shape[0] == 1), packed.d_out, d_out_pad, _build.stream_ptr(x),
+        None if part is None else part.data_ptr(),
+        r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster, cfg.d_subvec, int(cb.shape[0] == 1),
+        int(fast), 2 if plan.config == 0 else 8, packed.d_out, d_out_pad,
+        plan.split_steps * plan.step, plan.n_splits, _build.stream_ptr(x),
     )
     _build.check(lib, err, "dequant_mm_f32")
     DEQUANT_MM_F32_LAUNCHES += 1
