@@ -6,7 +6,9 @@
 Phases, one result line each; any failure raises and exits non-zero:
   0. device: the card's name and power limit, torch and CUDA versions;
   1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
-     parallel, sm_90a), link and load;
+     parallel, sm_90a), link and load; one line per kernel with registers
+     and spills, and the redesigned sources' kernels (flash decode's three,
+     J2's) must not spill;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      inputs, error, CUDA-event median times and profiler device times, at
      the shapes its path gives it: the projections at the Llama-2-7B shapes
@@ -23,9 +25,10 @@ Phases, one result line each; any failure raises and exits non-zero:
      shapes: the W8A8 dequant-matmul at 7/8/16/256 rows, the f32 one at
      7/256/1024 rows (and at 8/256 with per-subvector codebooks and with
      d_subvec 3, its general path), ``pairf`` at one token; both dequant
-     kernels give bit-equal outputs from two calls; the T-MAC W4 nibble
-     lookups (J1 at one token's f32 table, J2 at 2, 8 and 16 tokens' bf16
-     tables) at the 7B projection shapes and 4096 -> 28672.  Wrong-rounding
+     kernels, the attention kernels and the nibble lookups give bit-equal
+     outputs from two calls; the T-MAC W4 nibble lookups (J1 at one token's f32
+     table, J2 at 2, 8 and 16 tokens' bf16 tables, with J2's shared-memory
+     lookup floor) at the 7B projection shapes and 4096 -> 28672.  Wrong-rounding
      controls must fail each kernel's tolerance (the int8 and int16 lookups
      and the W8A8 matmul must equal their plain versions, ``pairf`` the
      ``pair`` kernel; truncating instead of rounding must not).  Each row
@@ -85,9 +88,10 @@ repository beside it, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile   # phases 0-1, then the profile below
 
-profiles batcher runs (i) and (iv) (``quality="fast"``) instead: device
-busy share, launches and device time by kernel (torch.profiler), and a B=8
-decode step, flash against einsum attention.
+profiles batcher runs (iv) (``quality="fast"``), (ii) (paged) and (i)
+instead: device busy share, launches and device time by kernel
+(torch.profiler), flash decode's share of it, and a B=8 decode step, flash
+against einsum attention.
 
     python3 chip_smoke.py --guard     # phases 0-1, then 2-4, 6 and 7 guarded
 
@@ -143,6 +147,16 @@ TABLE_SCANS = {
 # by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# J2's lookup floor: its shared-memory bytes at 128 B a clock an SM, at the
+# card's maximum SM clock (nvidia-smi clocks.max.sm, read in phase 0)
+SMEM_BYTES_CLK = 128
+SM_CLOCK_HZ = None
+# kernels of the sources redesigned for Hopper that phase 1 holds to zero
+# spills: csrc/flash_decode.cu (D, F) and csrc/lut_nibbles.cu (J2)
+NO_SPILL_KERNELS = ("decode_scores", "decode_values", "decode_combine", "lut_nibbles_bf16")
+# flash decode's kernels as the profiler names them (this tree's and the
+# single-kernel design before it), for --profile's share of device time
+DECODE_KERNELS = re.compile(r"flash_decode<|decode_(scores|values|combine)")
 # max|logits - plain logits| / max|plain logits|, prefill and first step.
 # The random 7B model turns last-bit differences into int8-KV and bf16
 # rounding flips: the plain versions with reordered f32 sums read 0.87-2.0e-2
@@ -457,6 +471,11 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} count {torch.cuda.device_count()}")
     # the plain versions' f32 products must be full f32, not TF32
@@ -471,8 +490,9 @@ def phase_build():
     _build.library()
     print(f"[build] {_build.BUILD_SECONDS:.1f} s")
     # one line per kernel: its name and template arguments as mangled,
-    # registers, shared memory and spills
-    name, spill = "?", ""
+    # registers, shared memory and spills; the redesigned sources' kernels
+    # must not spill
+    name, spill, seen = "?", "", set()
     for line in _build.BUILD_LOG.splitlines():
         m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]+(\d+)(\w+)'", line)
         if m:
@@ -482,6 +502,13 @@ def phase_build():
             spill = line.strip()
         elif "registers" in line:
             print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            kernel = next((k for k in NO_SPILL_KERNELS if name.startswith(k)), None)
+            if kernel:
+                seen.add(kernel)
+                check("0 bytes spill stores, 0 bytes spill loads" in spill,
+                      f"{name} spills: {spill}")
+    check(seen == set(NO_SPILL_KERNELS), f"kernels missing from the build log: "
+          f"{sorted(set(NO_SPILL_KERNELS) - seen)}")
 
 
 def phase_kernels(device):
@@ -851,6 +878,7 @@ def phase_nibbles(device):
                 lut = build_lut(cfg, packed.codebook, x,
                                 compute_dtype=torch.float32 if f32 else torch.bfloat16)
                 got = lg.lut_gemv_packed(cfg, packed, lut)
+                again = lg.lut_gemv_packed(cfg, packed, lut)
                 want = lg.lut_gemv_packed(cfg, packed, lut, plain=True)
                 # the other table precision, through the same plain version
                 wrong = lut.to(torch.bfloat16) if f32 else lut
@@ -862,22 +890,36 @@ def phase_nibbles(device):
                 xb = x.to(torch.bfloat16)
                 n_bytes = nbytes(packed.codes_t, packed.scales, got) + (
                     b * cfg.n_groups * 16 * (4 if f32 else 2))
+                # J2's floor: two entries of each launch's token tile (bf16)
+                # from shared memory per code byte and column
+                tiles = [min(8, b - i) for i in range(0, b, 8)]
+                smem = sum(packed.codes_t.shape[0] * packed.codes_t.shape[1] * 2 * 2 *
+                           next(t for t in (2, 4, 8) if t >= n) for n in tiles if n > 1)
+                floor = None if f32 else 1e3 * smem / (
+                    SMEM_BYTES_CLK * torch.cuda.get_device_properties(0).multi_processor_count
+                    * SM_CLOCK_HZ)
                 rows[name].append(with_bound(dict(
                     shape=f"tmac {d_in}x{d_out} B={b}", rel=rel_err(got, want),
                     abs=float((got - want).abs().max()), control=rel_err(control, want),
+                    equal=bool(torch.equal(got, again)), floor_ms=floor,
                     **kernel_times(lambda: lg.lut_gemv_packed(cfg, packed, lut),
                                    lambda: lg.lut_gemv_packed(cfg, packed, lut, plain=True),
                                    lambda: xb @ w.T, reps=20),
                     wrapper_ms=time_ms(lambda: lg.lut_gemv(cfg, packed, x)),
                 ), n_bytes, b * cfg.n_groups * d_out, "f32"))
-                del lut, got, want, control
+                del lut, got, again, want, control
         del w, packed, params
     for name, rs in rows.items():
         for r in rs:
+            floor = "" if r["floor_ms"] is None else (
+                f"  lookup floor {r['floor_ms']:.4f} ms (shared memory, {SMEM_BYTES_CLK} B/clk "
+                f"an SM at {SM_CLOCK_HZ / 1e6:.0f} MHz)")
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol "
                   f"{NIBBLE_TOL:.0e}, wrong-precision control {r['control']:.3e}) abs err "
-                  f"{r['abs']:.3e}  " + times(r) + f"  whole lut_gemv {r['wrapper_ms']:.4f} ms")
+                  f"{r['abs']:.3e}  " + times(r) + floor + f"  whole lut_gemv "
+                  f"{r['wrapper_ms']:.4f} ms  two calls bit-equal {r['equal']}")
             check(r["rel"] <= NIBBLE_TOL, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["equal"], f"{name} {r['shape']}: two calls differ")
             check(r["control"] > NIBBLE_TOL, f"{name} {r['shape']}: tolerance passes the control")
     return rows
 
@@ -933,10 +975,11 @@ def live_controls(dh):
 
 
 def attention_row(shape, kernel, plain, dh, library, work):
-    """Kernel against plain version (and the controls) on the same inputs;
-    ``library`` is the SDPA call on dequantized K/V, ``work`` the (bytes,
-    operations) the attention needs."""
-    got, want = kernel(), plain()
+    """Kernel against plain version (and the controls) on the same inputs,
+    and two kernel calls bit for bit (``equal``); ``library`` is the SDPA
+    call on dequantized K/V, ``work`` the (bytes, operations) the attention
+    needs."""
+    got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     controls = {}
     for c in live_controls(dh):
@@ -944,8 +987,8 @@ def attention_row(shape, kernel, plain, dh, library, work):
             controls[c] = rel_err(plain(), want)
     return with_bound(dict(
         shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
-        control=controls, **kernel_times(kernel, plain, library, reps=20, plain_reps=10)),
-        *work, "bf16")
+        control=controls, equal=bool(torch.equal(got, again)),
+        **kernel_times(kernel, plain, library, reps=20, plain_reps=10)), *work, "bf16")
 
 
 def dequant_kv(cache, rows, rep):
@@ -1032,8 +1075,10 @@ def phase_attention(device):
         for r in rs:
             ctl = " ".join(f"{c} {v:.3e}" for c, v in r["control"].items())
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
-                  f"controls {ctl}) abs err {r['abs']:.3e}  " + times(r))
+                  f"controls {ctl}) abs err {r['abs']:.3e}  " + times(r)
+                  + f"  two calls bit-equal {r['equal']}")
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["equal"], f"{name} {r['shape']}: two calls differ")
             for c, v in r["control"].items():
                 check(v > tol, f"{name} {r['shape']}: tolerance passes the {c} control ({v})")
     return rows
@@ -1420,18 +1465,19 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
 
 
 def phase_profile(device, cfg, weights):
-    """``--profile``: where the time of batcher runs (i) and (iv) (phase 6,
-    ``quality="fast"``) goes.  Each run once unprofiled and once under
-    torch.profiler (device busy share, kernel launches, device time by
-    kernel), then a B=8 decode step from run (i)'s caches under each
-    attention path (host clock, 5 steps each, flash and einsum alternated)."""
+    """``--profile``: where the time of batcher runs (iv) (phase 6,
+    ``quality="fast"``), (i) and (ii) (paged) goes.  Each run once
+    unprofiled and once under torch.profiler (device busy share, kernel
+    launches, device time by kernel, flash decode's share of it), then a B=8
+    decode step from run (i)'s caches under each attention path (host clock,
+    5 steps each, flash and einsum alternated)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_lutvq_torch.models.llama import llama_decode_step
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
     prompts, _, ids = batcher_prompts(cfg)
-    for run, kw in (("iv", dict(quality="fast")), ("i", {})):
+    for run, kw in (("iv", dict(quality="fast")), ("ii", PAGED), ("i", {})):
         serve(cfg, weights, prompts[:N_SLOTS], **kw)  # warm-up: lazy inits, allocator pools
         secs = serve(cfg, weights, prompts, **kw)[1]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1448,6 +1494,11 @@ def phase_profile(device, cfg, weights):
             ms = e.self_device_time_total / 1e3
             print(f"[profile]   {ms:10.1f} ms {100 * ms / 1e3 / busy:5.1f} % {e.count:7d} "
                   f"calls  {e.key[:100]}")
+        decode = [e for e in on_device if DECODE_KERNELS.search(e.key)]
+        ms = sum(e.self_device_time_total for e in decode) / 1e3
+        print(f"[profile] run ({run}): flash decode {ms:.1f} ms, {100 * ms / 1e3 / busy:.1f} % of "
+              f"device time, {sum(e.count for e in decode)} kernel launches over "
+              f"{len(decode)} kernels")
 
     pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
     tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
@@ -2036,7 +2087,7 @@ KERNELS = {
         replaces="tpu_lutvq/kernels/lut_gemv.py:628",
     ),
     "lut_gemv_nibbles_bpair": dict(
-        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_nibbles.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:658",
     ),
 }

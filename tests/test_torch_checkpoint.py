@@ -127,7 +127,7 @@ def test_load_2x8_matches_jax_and_oracle():
     assert np.array_equal(got, want)
     np.testing.assert_allclose(got.T, numpy_dequant(tensors, "proj", codes_u), rtol=1e-6, atol=1e-6)
     x = np.random.RandomState(1).randn(3, 64).astype(np.float32)
-    got = tlayer.apply(tcfg, torch.from_numpy(x)).numpy()
+    got = tlayer.apply(tcfg, torch.from_numpy(x), strategy="lut_gemv").numpy()
     want = np.asarray(jlayer.apply(jcfg, jnp.asarray(x), strategy="lut_gemv", interpret=True))
     assert rel_err(got, want) <= BF16_TOL
 
@@ -142,9 +142,9 @@ def test_load_out_group8_matches_jax_and_oracle():
     assert np.array_equal(tlayer.packed.codes_t.numpy(), np.asarray(jlayer.packed.codes_t))
     x = np.random.RandomState(8).randn(3, 64).astype(np.float32)
     want = x @ numpy_dequant(tensors, "proj", codes_u).T
-    got = tlayer.apply(tcfg, torch.from_numpy(x)).numpy()
+    got = tlayer.apply(tcfg, torch.from_numpy(x), strategy="lut_gemv").numpy()
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=0.15)
-    jgot = np.asarray(jlayer.apply(jcfg, jnp.asarray(x), interpret=True))
+    jgot = np.asarray(jlayer.apply(jcfg, jnp.asarray(x), strategy="lut_gemv", interpret=True))
     assert rel_err(got, jgot) <= BF16_TOL
     got32 = tlayer.apply(tcfg, torch.from_numpy(x), strategy="lut_gemv", variant="f32").numpy()
     np.testing.assert_allclose(got32, want, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,8 @@
 """Parity of the torch port's packing slice with the JAX package: nibble
 (T-MAC, kernel J), shard and out_group packs from ``pack_params``, variant
-resolution, ``lut_gemv`` over nibble and out_group packs, and the layer's
-routing of them.
+resolution, ``lut_gemv`` over nibble and out_group packs, the layer's
+routing of them, and J2's cluster split (``plan_nibbles``, its staged table
+layout, and its rank-order reduce emulated against JAX's ``nibbles_bpair``).
 
 Inputs are made with numpy from a seed and go through both packages: the
 JAX functions as ``tests/test_kernels.py`` runs them (CPU, Pallas
@@ -264,3 +265,105 @@ def test_lut_gemv_out_group_matches_jax(og, batch):
     assert rel_err(f32.numpy(), dense.numpy()) <= 1e-5
     with pytest.raises(ValueError, match="out_group"):
         tl.apply(tcfg, torch.from_numpy(x), strategy="dequant_mm")
+
+
+# ---- J2's cluster split ----------------------------------------------------------
+
+H100_SMS = 132
+# (code rows, padded width) of the T-MAC W4 7B projections and 4096 -> 28672:
+# tmac(d_in, bits=4, group=4) has d_in groups, two a code row
+TMAC_PLAN_SHAPES = ((2048, 4096), (2048, 11264), (5504, 4096), (2048, 28672))
+
+
+@pytest.mark.parametrize("bp", [2, 4, 8])
+@pytest.mark.parametrize("rows,width", TMAC_PLAN_SHAPES)
+def test_nibble_plan_covers_every_code_row_once(rows, width, bp):
+    """Each column tile's splits (one cluster of ≤ 8 blocks) cover the code
+    rows in order, none empty; each split's staging rounds cover it within
+    the stage budget; the grid covers the width and gives (nearly) every SM
+    a block, with no workspace in device memory."""
+    plan = tlut.plan_nibbles(rows, width, bp, H100_SMS)
+    assert plan.tile_cols in tlut.NIBBLE_TILE_COLS
+    assert 1 <= plan.n_splits <= tlut.NIBBLE_MAX_SPLITS
+    tiles, splits = plan.grid
+    assert splits == plan.n_splits and tiles * plan.tile_cols >= width > (tiles - 1) * plan.tile_cols
+    assert tiles * splits >= 0.96 * H100_SMS
+    covered = [r for split in plan.split_rows(rows) for r in split]
+    assert covered == list(range(rows))
+    for split in plan.split_rows(rows):
+        assert len(split) > 0
+        assert [r for rnd in plan.rounds(split) for r in rnd] == list(split)
+    assert plan.stage_rows * 2 * tlut.NIBBLE_K * bp * 2 <= 128 * 1024
+
+
+@pytest.mark.parametrize("rows,width", TMAC_PLAN_SHAPES)
+def test_nibble_plan_avoids_a_second_wave_of_clusters(rows, width):
+    """When the card holds fewer clusters than the ideal count (one block an
+    SM), the plan counts the clusters that wait: at the 7B shapes it finds
+    a split that runs in one wave of what fits."""
+    def fits(bp, tc, ns, stage_rows):
+        return 120 // ns  # 15 clusters of 8 where the ideal is 16
+
+    plan = tlut.plan_nibbles(rows, width, 8, H100_SMS, fits)
+    tiles, splits = plan.grid
+    if width <= 11264:
+        assert tiles <= fits(8, plan.tile_cols, splits, plan.stage_rows)
+    assert tlut.plan_nibbles(rows, width, 8, H100_SMS, fits) is plan
+
+
+def test_nibble_table_layout_puts_a_group_quad_in_one_bank_row():
+    """J2's staged layout: entry (token b, group g, k) sits at (g // 2, b //
+    4, g % 2, k, b % 4), so one group's 16 entries of a token quad are 128
+    contiguous bytes; padded tokens and an odd G's last group are zero."""
+    rng = np.random.default_rng(50)
+    lut = torch.from_numpy(rng.standard_normal((6, 9, 16)).astype(np.float32)).to(torch.bfloat16)
+    tab = tlut.nibble_table_layout(lut, 8)
+    assert tab.shape == (5, 2, 2, 16, 4)
+    for b, g, k in ((0, 0, 0), (5, 8, 15), (3, 4, 7), (4, 1, 9)):
+        assert tab[g // 2, b // 4, g % 2, k, b % 4] == lut[b, g, k]
+    assert not tab[4, :, 1].any() and not tab[:, 1, :, :, 2:].any()
+    two = tlut.nibble_table_layout(lut[:2, :8], 2)
+    assert two.shape == (4, 1, 2, 16, 2) and two[3, 0, 1, 5, 1] == lut[1, 7, 5]
+
+
+def cluster_reduce(lut, pk, plan):
+    """J2's order: each split's f32 sum of its code rows' entries (the
+    bf16 tables as given), the splits summed in rank order, then the
+    scales."""
+    g = lut.shape[1]
+    codes = tparams.unpack_codes_nibbles(pk.codes_t[:, :pk.d_out].T).T[:g].long()
+    vals = torch.gather(lut.float(), 2, codes.unsqueeze(0).expand(lut.shape[0], g, pk.d_out))
+    y = None
+    for split in plan.split_rows(-(-g // 2)):
+        part = vals[:, 2 * split.start : 2 * split.stop].sum(dim=1)
+        y = part if y is None else y + part
+    return y * pk.scales[:, :pk.d_out]
+
+
+@pytest.mark.parametrize("batch", [2, 3, 8])
+def test_nibble_cluster_reduce_matches_jax(batch):
+    """The split sum of J2's plan (small SM counts split 64 code rows 8 ways)
+    against JAX's nibbles_bpair kernel in interpret mode, same f32 tables."""
+    jcfg, tcfg, jp, tp = tmac_params(128, 384, seed=60 + batch)
+    jpk = jlut.pack_params(jcfg, jp, block_j=128, nibble_pack=True)
+    tpk = tlut.pack_params(tcfg, tp, block_j=128, nibble_pack=True)
+    lut = np.random.default_rng(61).standard_normal((batch, jcfg.n_groups, 16)).astype(np.float32)
+    want = np.asarray(jlut._lut_gemv_packed(jcfg, jpk, jnp.asarray(lut), block_j=128,
+                                            interpret=True, variant="nibbles_bpair"))
+    bp = next(t for t in (2, 4, 8) if t >= batch)
+    plan = tlut.plan_nibbles(jcfg.n_groups // 2, tpk.codes_t.shape[1], bp, 8)
+    assert plan.n_splits > 1
+    got = cluster_reduce(torch.from_numpy(lut).to(torch.bfloat16), tpk, plan)
+    assert got.shape == want.shape == (batch, 384)
+    assert rel_err(got.numpy(), want) <= BF16_TOL
+    assert rel_err(tlut.lut_gemv_packed(tcfg, tpk, torch.from_numpy(lut)).numpy(), want) <= BF16_TOL
+
+
+def test_nibble_bf16_launcher_rejects_cpu_tensors():
+    _, tcfg, _, tp = tmac_params(64, 128, seed=5)
+    pk = tlut.pack_params(tcfg, tp, nibble_pack=True)
+    lut = torch.zeros((2, tcfg.n_groups, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlut._launch_nibbles_bf16(lut, pk.codes_t, pk.scales, pk.d_out)
+    with pytest.raises(ValueError, match="tokens"):
+        tlut._launch_nibbles_bf16(lut[:1], pk.codes_t, pk.scales, pk.d_out)

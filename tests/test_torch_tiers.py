@@ -272,8 +272,6 @@ VARIANTS = ("auto", "pair", "pairf", "bpair", "f32", "i8", "i16")
 def expected_route(strategy, rows, variant, quality):
     """The JAX layer's routing (``linear.py:171-193``) as (path, tables or
     lookup variant): which port call the layer must equal exactly."""
-    if strategy == "auto":
-        strategy = "lut_gemv" if rows <= tlin.LUT_GEMV_MAX_BATCH else "dequant_mm"
     if strategy == "dequant_mm":
         if variant in ("f32", "i8"):
             return strategy, variant
@@ -289,19 +287,24 @@ def test_quantized_linear_routes_every_variant_as_jax(strategy, rows):
     """Every (variant, quality) the JAX layer accepts at this strategy and
     batch: the port takes the JAX layer's kernel path (equal to a direct
     call of it) and gives JAX's result.  Covers the repaired dequant_mm
-    routing (any variant but f32/i8 → the tables ``quality`` picks)."""
+    routing (any variant but f32/i8 → the tables ``quality`` picks).  JAX
+    gets the strategy the port's ``auto`` resolved to, so that kernel path
+    is held against the same one (the two ``auto`` rules differ at tiny
+    widths; ``test_pick_strategy_pins_tiny_model_routes``)."""
     jcfg, tcfg, jpk, tpk = aqlm(256, d_out=256, shared=True, seed=rows, dtype=np.float32)
     x = seeded_x(rows, 256, 40 + rows)
     jlayer, tlayer = JLinear(jpk), tlin.QuantizedLinear(tpk)
     xt = torch.from_numpy(x)
+    route = tlin.pick_strategy(tcfg, tpk.d_out, rows) if strategy == "auto" else strategy
     for variant in VARIANTS:
         for quality in ("exact", "fast"):
-            path, how = expected_route(strategy, rows, variant, quality)
+            path, how = expected_route(route, rows, variant, quality)
             if path == "lut_gemv" and how == "pairf" and rows > 1:
                 for layer, xx in ((tlayer, xt), (jlayer, jnp.asarray(x))):
                     kw = {} if layer is tlayer else dict(interpret=True)
                     with pytest.raises(ValueError, match="B=1"):
-                        layer.apply(tcfg if layer is tlayer else jcfg, xx, strategy=strategy,
+                        layer.apply(tcfg if layer is tlayer else jcfg, xx,
+                                    strategy=strategy if layer is tlayer else route,
                                     variant=variant, quality=quality, **kw)
                 continue
             got = tlayer.apply(tcfg, xt, strategy=strategy, variant=variant, quality=quality)
@@ -312,7 +315,7 @@ def test_quantized_linear_routes_every_variant_as_jax(strategy, rows):
             else:
                 direct = tlayer.apply(tcfg, xt, strategy="dense_bf16")
             assert torch.equal(got, direct), (variant, quality)
-            want = np.asarray(jlayer.apply(jcfg, jnp.asarray(x), strategy=strategy,
+            want = np.asarray(jlayer.apply(jcfg, jnp.asarray(x), strategy=route,
                                            interpret=True, variant=variant, quality=quality))
             if (path, how) == ("dequant_mm", "i8"):
                 assert np.array_equal(got.numpy(), want), (variant, quality)
@@ -322,6 +325,33 @@ def test_quantized_linear_routes_every_variant_as_jax(strategy, rows):
             if path == "dense_bf16":
                 tol = F32_TOL
             assert rel_err(got.numpy(), want) <= tol, (variant, quality)
+
+
+TINY_PROJECTIONS = {  # LlamaConfig.tiny(): (d_in, d_out) of each projection
+    "wq": (128, 128), "wk": (128, 64), "wv": (128, 64), "wo": (128, 128),
+    "w_gate": (128, 256), "w_up": (128, 256), "w_down": (256, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TINY_PROJECTIONS))
+def test_pick_strategy_pins_tiny_model_routes(name):
+    """What ``auto`` resolves to at each tiny-model projection and 1-9 rows:
+    the port's provisional rule (``lut_gemv`` up to ``LUT_GEMV_MAX_BATCH =
+    6`` rows at every shape) beside the JAX package's v5e cost model, which
+    leaves ``lut_gemv`` earlier at some of these widths.  A measured H100
+    crossover that moves a route must change this table."""
+    from tpu_lutvq.dataflow.traffic import pick_strategy as j_pick
+
+    d_in, d_out = TINY_PROJECTIONS[name]
+    tcfg = tl.LlamaConfig.tiny().vq_cfg(d_in)
+    jcfg = jl.LlamaConfig.tiny().vq_cfg(d_in)
+    got = [tlin.pick_strategy(tcfg, d_out, rows) for rows in range(1, 10)]
+    assert got == ["lut_gemv"] * 6 + ["dequant_mm"] * 3
+    jax_routes = [j_pick(jcfg, d_out, rows) for rows in range(1, 10)]
+    assert set(jax_routes) <= {"lut_gemv", "dequant_mm"}
+    assert jax_routes[0] == "lut_gemv" and jax_routes[6:] == ["dequant_mm"] * 3
+    # where the rules part, the port keeps the lookup longer
+    assert all(t == "lut_gemv" for t, j in zip(got, jax_routes) if t != j)
 
 
 # ---- the model, chunked prefill, batcher ---------------------------------------------

@@ -1,16 +1,15 @@
-// Lookup-accumulate over prebuilt f32, bf16, int8 or int16 tables for Hopper
+// Lookup-accumulate over prebuilt f32, int8 or int16 tables for Hopper
 // (sm_90a), over byte codes or nibble-packed 4-bit codes.
 //
-// Replaces five kernels of tpu_lutvq/kernels/lut_gemv.py, reached through
+// Replaces four kernels of tpu_lutvq/kernels/lut_gemv.py, reached through
 // _lut_gemv_packed (:689) with per-token tables:
 //   ::_gemv_kernel     (:586)  f32 tables, f32 sum            (variant "f32")
 //   ::_gemv_kernel_i8  (:487)  int8 tables, exact int32 sum   (variant "i8")
 //   ::_gemv_kernel_i16 (:541)  int16 tables, exact int32 sum  (variant "i16")
 //   ::_gemv_kernel_nibbles       (:628)  nibble codes, one token's f32 table,
 //                                        f32 sum (variant "nibbles")
-//   ::_gemv_kernel_nibbles_bpair (:658)  nibble codes, 2-8 tokens' bf16
-//                                        tables, f32 sum ("nibbles_bpair")
-// All compute
+// (nibble codes with 2-8 tokens' bf16 tables, "nibbles_bpair", have their own
+// kernel in lut_nibbles.cu.)  All compute
 //     y[b, j] = float(sum_g tab[b, g, codes_t[g, j]]) * s[j]
 // where a nibble-packed code row r holds group 2r in its low and group 2r+1
 // in its high nibble (the T-MAC layout, K = 16):
@@ -42,14 +41,14 @@
 //     partial sums (int32 for the integer variants, so they stay exact) to a
 //     workspace that a second kernel adds in a fixed order.  With one split
 //     the first kernel writes the result itself.
-// The nibble kernels (T-MAC W4 projections, G = 4 * d_in groups of 16
-// entries) are bounded by the packed codes: G/2 * d_out bytes, 8 MiB at
+// The nibble kernel (T-MAC W4 projections at one token, G = 4 * d_in groups
+// of 16 entries) is bounded by the packed codes: G/2 * d_out bytes, 8 MiB at
 // 4096x4096 (2.5 us at 3.35 TB/s).  The TPU orders each token's table rows
 // [even groups; odd groups] and pads K = 16 to 128 lanes for its gather;
 // here a code row's two groups are adjacent in the staged table, which holds
-// only the 16 real entries of each group (64 B f32 or 32 B bf16 a token), and
-// one code byte adds two entries.  A whole token's table (256 KiB f32 at
-// d_in = 4096) does not fit an SM, so G splits as above.
+// only the 16 real entries of each group (64 B f32 a token), and one code
+// byte adds two entries.  A whole token's table (256 KiB f32 at d_in = 4096)
+// does not fit an SM, so G splits as above.
 // Left for later: overlapping code loads with staging, and a table layout
 // free of shared-memory bank conflicts for the 32-byte f32 entries.
 
@@ -58,23 +57,15 @@
 
 namespace {
 
-// A bf16 table entry as its bits (the wrapper's torch.bfloat16 storage).
-struct Bf16 { uint16_t bits; };
-
 constexpr int kThreads = 256;
 constexpr int kCols = 4;                       // output columns per thread
 constexpr int kTileCols = kThreads * kCols;    // 1024 columns per tile
 
 template <typename T> struct Acc { using type = int32_t; };
 template <> struct Acc<float> { using type = float; };
-template <> struct Acc<Bf16> { using type = float; };
 
 template <typename A, typename T>
 __device__ __forceinline__ A widen(T v) { return static_cast<A>(v); }
-template <>
-__device__ __forceinline__ float widen<float, Bf16>(Bf16 v) {
-  return __uint_as_float(static_cast<uint32_t>(v.bits) << 16);
-}
 
 // N entries read by one aligned load of at most 16 bytes.
 template <typename T, int N>
@@ -252,8 +243,8 @@ int launch_bp(int BP, const void* tab, const void* codes, const void* scales, vo
 
 }  // namespace
 
-// kind: 0 = f32 tables (K; J1 with nibbles), 1 = int8 (H), 2 = int16 (I),
-// 3 = bf16 (J2, nibbles only).  nibbles: codes hold two 4-bit codes a byte,
+// kind: 0 = f32 tables (K; J1 with nibbles), 1 = int8 (H), 2 = int16 (I).
+// nibbles: codes hold two 4-bit codes a byte,
 // G counts code rows and the table holds 2 G groups of KP entries.
 extern "C" int lutvq_lut_scan(int kind, int nibbles, const void* tab, const void* codes,
                               const void* scales, void* ws, void* out, int B, int BP, int G,
@@ -265,7 +256,6 @@ extern "C" int lutvq_lut_scan(int kind, int nibbles, const void* tab, const void
   if (nibbles) {
     switch (kind) {
       case 0: return launch_bp<float, true>(LUTVQ_SCAN_ARGS);
-      case 3: return launch_bp<Bf16, true>(LUTVQ_SCAN_ARGS);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -4,7 +4,8 @@ The ``csrc/*.cu`` sources have a plain C interface.  On first use each is
 compiled with its own ``nvcc`` for ``sm_90a``, all at once, and the objects
 are linked into one shared library loaded with ``ctypes``.  The library's
 file name carries a hash of the sources and flags, so an unchanged tree
-reuses it and an edited one rebuilds.  It lives
+reuses it and an edited one rebuilds; nvcc's report (registers, spills)
+is kept beside it.  It lives
 under ``build/kernels/`` at the checkout root (listed in ``.gitignore``), or
 under ``$TPU_LUTVQ_TORCH_BUILD_DIR``.  Nothing here runs at import time, and
 a failed build raises: there is no fallback.
@@ -32,7 +33,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _lib = None
 BUILD_SECONDS = None  # wall time of the first ``library()`` call (build or load)
-BUILD_LOG = ""  # nvcc's output (register, shared-memory and spill report)
+BUILD_LOG = ""  # nvcc's output (register, shared-memory and spill report) of this library
 
 
 def build_dir() -> Path:
@@ -59,13 +60,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_lut_gemv.restype = i32
     lib.lutvq_lut_scan.argtypes = [i32, i32] + [vp] * 5 + [i32] * 10 + [vp]
     lib.lutvq_lut_scan.restype = i32
+    lib.lutvq_lut_nibbles_bf16.argtypes = [vp] * 4 + [i32] * 9 + [vp]
+    lib.lutvq_lut_nibbles_bf16.restype = i32
+    lib.lutvq_lut_nibbles_bf16_clusters.argtypes = [i32] * 4
+    lib.lutvq_lut_nibbles_bf16_clusters.restype = i32
     lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm.restype = i32
     lib.lutvq_dequant_mm_i8.argtypes = [vp] * 7 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm_i8.restype = i32
     lib.lutvq_dequant_mm_f32.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm_f32.restype = i32
-    lib.lutvq_flash_decode.argtypes = [vp] * 8 + [i32] * 9 + [ctypes.c_float, vp]
+    lib.lutvq_flash_decode.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.c_float, vp]
     lib.lutvq_flash_decode.restype = i32
     lib.lutvq_flash_prefill.argtypes = [vp] * 7 + [i32] * 9 + [ctypes.c_float, vp]
     lib.lutvq_flash_prefill.restype = i32
@@ -85,6 +90,7 @@ def library() -> ctypes.CDLL:
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     out = build_dir() / f"libtpu_lutvq_kernels_{digest.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")  # nvcc's report, kept beside the library
     if not out.exists():
         nvcc = _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -100,7 +106,10 @@ def library() -> ctypes.CDLL:
             ])
         finally:
             shutil.rmtree(objs, ignore_errors=True)
+        log.write_text(BUILD_LOG)
         os.replace(tmp, out)
+    elif log.exists():
+        BUILD_LOG = log.read_text()
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     BUILD_SECONDS = time.perf_counter() - t0

@@ -18,13 +18,18 @@ nothing (their rows are masked, so ``m`` stays, ``alpha`` is 1 and ``p`` 0).
 
 :func:`decode_slab` and :func:`decode_paged` are the kernel's wrappers: a
 CUDA tensor launches ``csrc/flash_decode.cu`` (counted in
-``FLASH_DECODE_LAUNCHES`` / ``FLASH_DECODE_PAGED_LAUNCHES``) or raises; a
-CPU tensor takes :func:`decode_slab_plain` / :func:`decode_paged_plain`.
+``FLASH_DECODE_LAUNCHES`` / ``FLASH_DECODE_PAGED_LAUNCHES``, one a call) or
+raises; a CPU tensor takes :func:`decode_slab_plain` /
+:func:`decode_paged_plain`.  The kernel splits the window into chunks
+across blocks as :func:`plan_decode` says and rounds each chunk's p against
+its reference block's prefix max, so it keeps the rounding points above.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -38,11 +43,54 @@ FLASH_DECODE_PAGED_LAUNCHES = 0  # paged kernel launches since the last reset
 
 KERNEL_HEAD_DIMS = (64, 128)  # head_dim values csrc/flash_decode.cu is built for
 KERNEL_MAX_REP = 8  # query heads per kv head the kernel holds in registers
-KERNEL_MAX_BLOCK = 512  # rows per block the kernel's shared memory takes
+KERNEL_MAX_BLOCK = 512  # rows per block the kernel takes
+KERNEL_MAX_CHUNK = 128  # rows a chunk of the split (csrc/flash_decode.cu kMaxChunk)
+KERNEL_MIN_CHUNK = 32  # smallest chunk the plan picks to fill the card
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How ``csrc/flash_decode.cu`` splits a window of ``n_chunks * chunk``
+    rows: pass 1 and pass 2 run one block per (chunk, kv head, sequence)
+    (``grid``, x fastest), and chunk ``c`` rounds its p against the prefix
+    max of its reference block ``c // per_block``."""
+
+    chunk: int  # rows a chunk: a divisor of block_s, ≤ KERNEL_MAX_CHUNK
+    n_chunks: int
+    per_block: int  # chunks a reference block
+    grid: tuple
+
+    def rows(self, c: int, pos: int) -> range:
+        """The rows chunk ``c`` attends for a sequence at ``pos``: empty
+        when the chunk lies wholly past it (its blocks exit at once)."""
+        start = c * self.chunk
+        return range(start, min(start + self.chunk, pos + 1) if start <= pos else start)
+
+    def workspace_floats(self, b: int, h: int, dh: int) -> int:
+        """f32 workspace: scores (B, H, W), then per (B, H, chunk) the chunk
+        max, the partial sum of bf16(p vs) V (Dh), Σ p and the prefix max."""
+        return b * h * self.n_chunks * (self.chunk + dh + 3)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode(b: int, hkv: int, window: int, block_s: int, sms: int) -> DecodePlan:
+    """The split of a ``window``-row read (whole blocks of ``block_s``
+    rows) for ``b`` sequences of ``hkv`` kv heads on a card of ``sms`` SMs.
+    The chunk is the largest divisor of block_s up to KERNEL_MAX_CHUNK that
+    gives two waves of blocks, halving no further than KERNEL_MIN_CHUNK.  A
+    function of the shapes alone: the positions stay on the device, and
+    chunks past them exit."""
+    if window % block_s:
+        raise ValueError(f"window {window} is not whole blocks of {block_s}")
+    divisors = [d for d in range(min(block_s, KERNEL_MAX_CHUNK), 0, -1) if block_s % d == 0]
+    cands = [d for d in divisors if d >= KERNEL_MIN_CHUNK] or divisors[:1]
+    chunk = next((d for d in cands if b * hkv * (window // d) >= 2 * sms), cands[-1])
+    n_chunks = window // chunk
+    return DecodePlan(chunk, n_chunks, block_s // chunk, (n_chunks, hkv, b))
 
 
 def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -173,12 +221,16 @@ def _launch(q, k, v, k_scale, v_scale, pos, block_tables, nblk, block_s):
         block_tables = block_tables.to(torch.int32).contiguous()
         _build.require_cuda_tensor(block_tables, "block_tables", torch.int32)
         max_blocks = block_tables.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = plan_decode(b, hkv, nblk * block_s, block_s, sms)
+    ws = torch.empty((plan.workspace_floats(b, h, dh),), dtype=torch.float32, device=q.device)
     lib = _build.library()
     err = lib.lutvq_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         pos.data_ptr(), None if block_tables is None else block_tables.data_ptr(),
-        out.data_ptr(), b, h, hkv, dh, rows, nblk, block_s, max_blocks,
-        int(k.dtype == torch.int8), ctypes.c_float(1.0 / dh**0.5), _build.stream_ptr(q),
+        out.data_ptr(), ws.data_ptr(), b, h, hkv, dh, rows, nblk, block_s, max_blocks,
+        plan.chunk, int(k.dtype == torch.int8), ctypes.c_float(1.0 / dh**0.5),
+        _build.stream_ptr(q),
     )
     _build.check(lib, err, "flash_decode")
     return out

@@ -17,9 +17,10 @@ flavours of table, each a hand-written CUDA kernel for 1 to
   counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``;
 - ``nibbles``/``nibbles_bpair`` (B=1 / B≥2), the only variants of a
   nibble-packed (T-MAC, K=16) pack: two groups' 4-bit codes a byte, one
-  token's f32 table or 2-8 tokens' bf16 tables, f32 sum — the same source,
-  wrapper :func:`lut_lookup_nibbles`, counters
-  ``LUT_GEMV_NIBBLES_LAUNCHES``/``LUT_GEMV_NIBBLES_BPAIR_LAUNCHES``.
+  token's f32 table (the same source) or 2-8 tokens' bf16 tables
+  (``csrc/lut_nibbles.cu``, split over a thread-block cluster as
+  :func:`plan_nibbles` says), f32 sum — wrapper :func:`lut_lookup_nibbles`,
+  counters ``LUT_GEMV_NIBBLES_LAUNCHES``/``LUT_GEMV_NIBBLES_BPAIR_LAUNCHES``.
 
 A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
 raises; a CPU tensor takes the plain PyTorch version
@@ -33,6 +34,7 @@ runs as a pseudo-batch of one table per block row.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -72,8 +74,12 @@ _SCAN_KINDS = {
     (torch.int8, False): (1, "LUT_GEMV_I8_LAUNCHES"),
     (torch.int16, False): (2, "LUT_GEMV_I16_LAUNCHES"),
     (torch.float32, True): (0, "LUT_GEMV_NIBBLES_LAUNCHES"),
-    (torch.bfloat16, True): (3, "LUT_GEMV_NIBBLES_BPAIR_LAUNCHES"),
 }
+# csrc/lut_nibbles.cu (J2): column tiles a block may take, blocks a cluster
+# may hold (the portable cluster size), the table bytes staged at a time
+NIBBLE_TILE_COLS = (1024, 512, 256, 128)
+NIBBLE_MAX_SPLITS = 8
+_NIBBLE_STAGE_BYTES = 128 * 1024
 VARIANTS = ("auto", "pair", "pairf", "bpair", "f32", "i8", "i16")
 NIBBLE_VARIANTS = ("nibbles", "nibbles_bpair")  # what a nibble pack resolves to
 
@@ -415,13 +421,113 @@ def lut_lookup_nibbles(
     tensor, the CUDA kernel for a CUDA tensor."""
     if lut.device.type == "cpu":
         return lut_lookup_nibbles_plain(lut, codes_t, scales, d_out)
+    if lut.dtype == torch.bfloat16:
+        return _launch_nibbles_bf16(lut, codes_t, scales, d_out)
     return _launch_table(lut, codes_t, scales, d_out, nibbles=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class NibblePlan:
+    """How ``csrc/lut_nibbles.cu`` covers ``rows`` code rows × the padded
+    width: ``grid`` = (column tiles of ``tile_cols``, ``n_splits``), the
+    splits of a tile one cluster; split ``q`` takes ``slice_rows`` rows from
+    ``q * slice_rows`` and stages their tables ``stage_rows`` at a time."""
+
+    tile_cols: int
+    n_splits: int
+    slice_rows: int
+    stage_rows: int
+    grid: tuple
+
+    def split_rows(self, rows: int) -> list:
+        return [range(min(rows, q * self.slice_rows), min(rows, (q + 1) * self.slice_rows))
+                for q in range(self.n_splits)]
+
+    def rounds(self, split: range) -> list:
+        return [range(s, min(split.stop, s + self.stage_rows))
+                for s in range(split.start, split.stop, self.stage_rows)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_nibbles(rows: int, d_out_pad: int, bp: int, sms: int, fits=None) -> NibblePlan:
+    """J2's split of ``rows`` code rows over ``d_out_pad`` columns for a
+    ``bp``-token tile on a card of ``sms`` SMs: the (column tile, splits ≤
+    NIBBLE_MAX_SPLITS) that minimises waves × a block's work, counted in
+    column lookups per code row plus the staging of that row's tables (~6
+    lookups a token).  ``fits(bp, tile_cols, n_splits, stage_rows)`` is how many
+    such clusters the card holds at once (the wrapper asks the card; by
+    default one block an SM, ``sms // n_splits``): a cluster that does not
+    fit waits for a second wave.  No split is left empty.  Pure."""
+    stage_cost = 6 * bp
+    best = None
+    for tc in NIBBLE_TILE_COLS:
+        tiles = -(-d_out_pad // tc)
+        for ns in range(1, NIBBLE_MAX_SPLITS + 1):
+            slice_rows = -(-rows // ns)
+            if slice_rows * (ns - 1) >= rows:
+                continue
+            stage_rows = min(slice_rows, _NIBBLE_STAGE_BYTES // (2 * NIBBLE_K * bp * 2))
+            slots = sms // ns if fits is None else fits(bp, tc, ns, stage_rows)
+            if slots < 1:
+                continue
+            cost = -(-tiles // slots) * (tc + stage_cost) * slice_rows
+            if best is None or cost < best[0]:
+                best = (cost, NibblePlan(tc, ns, slice_rows, stage_rows, (tiles, ns)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fits(bp: int, tile_cols: int, n_splits: int, stage_rows: int) -> int:
+    """Clusters of a J2 plan the card holds at once (the CUDA occupancy
+    query); 0 when one cannot launch."""
+    n = _build.library().lutvq_lut_nibbles_bf16_clusters(bp, tile_cols, n_splits, stage_rows)
+    return max(n, 0)
+
+
+def nibble_table_layout(lut: torch.Tensor, bp: int) -> torch.Tensor:
+    """(B, G, 16) bf16 tables as J2 stages them: (G/2 code rows, token
+    quads, low/high group, 16 entries, ≤ 4 tokens), tokens padded to ``bp``
+    with zero tables and an odd G with a zero group."""
+    b, g, _ = lut.shape
+    tq = min(bp, 4)
+    lut = F.pad(lut[..., :NIBBLE_K], (0, 0, 0, g % 2, 0, bp - b))
+    return lut.reshape(bp // tq, tq, -1, 2, NIBBLE_K).permute(2, 0, 3, 4, 1).contiguous()
+
+
+def _launch_nibbles_bf16(lut, codes_t, scales, d_out):
+    global LUT_GEMV_NIBBLES_BPAIR_LAUNCHES
+    b, g, kp = lut.shape
+    r_pad, d_out_pad = codes_t.shape
+    rows = -(-g // 2)
+    if not 2 <= b <= MAX_LUT_BATCH or kp < NIBBLE_K:
+        raise ValueError(f"nibbles_bpair kernel takes 2-{MAX_LUT_BATCH} tokens' tables of ≥ "
+                         f"{NIBBLE_K} entries, got {tuple(lut.shape)}")
+    if rows > r_pad or d_out > d_out_pad or d_out_pad % LANE:
+        raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
+    bp = next(t for t in _TOKEN_TILES if t >= b)
+    tab = nibble_table_layout(lut, bp)
+    for t, name, dtype in ((tab, "lut", torch.bfloat16), (codes_t, "codes_t", torch.uint8)):
+        _build.require_cuda_tensor(t, name, dtype)
+    if scales is not None:
+        _build.require_cuda_tensor(scales, "scales", torch.float32)
+    sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
+    plan = plan_nibbles(rows, d_out_pad, bp, sms, _cluster_fits)
+    out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
+    lib = _build.library()
+    err = lib.lutvq_lut_nibbles_bf16(
+        tab.data_ptr(), codes_t.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), b, bp, rows, d_out, d_out_pad, plan.tile_cols, plan.n_splits,
+        plan.slice_rows, plan.stage_rows, _build.stream_ptr(lut),
+    )
+    _build.check(lib, err, "lut_nibbles_bf16")
+    LUT_GEMV_NIBBLES_BPAIR_LAUNCHES += 1
+    return out
 
 
 def _launch_table(lut, codes_t, scales, d_out, nibbles=False):
     if (lut.dtype, nibbles) not in _SCAN_KINDS:
-        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, or f32 and bf16 "
-                         f"ones over nibble codes; got {lut.dtype} (nibbles={nibbles})")
+        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, or f32 ones over "
+                         f"nibble codes; got {lut.dtype} (nibbles={nibbles})")
     kind, counter = _SCAN_KINDS[(lut.dtype, nibbles)]
     per_row = 1
     if nibbles:

@@ -25,7 +25,13 @@ from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, local_view, lut_gemv, pac
 LUT_GEMV_MAX_BATCH = 6
 
 
-def pick_strategy(rows: int) -> str:
+def pick_strategy(cfg: VQConfig, d_out: int, rows: int) -> str:
+    """The kernel ``strategy="auto"`` takes for ``rows`` inputs of a
+    ``cfg`` layer with ``d_out`` outputs (the JAX package's signature,
+    ``dataflow/traffic.py:388``).  Only ``rows`` decides for now: the
+    measured H100 crossover that will read ``cfg`` and ``d_out`` replaces
+    ``LUT_GEMV_MAX_BATCH``."""
+    del cfg, d_out
     return "lut_gemv" if rows <= LUT_GEMV_MAX_BATCH else "dequant_mm"
 
 
@@ -126,7 +132,7 @@ class QuantizedLinear(NamedTuple):
         lead = x.shape[:-1]
         xb = x.reshape(-1, x.shape[-1])
         if strategy == "auto":
-            strategy = pick_strategy(xb.shape[0])
+            strategy = pick_strategy(cfg, self.packed.d_out, xb.shape[0])
             if self.packed.nibbles or self.packed.out_group > 1:
                 strategy = "lut_gemv"  # the only kernels that read these layouts
         elif strategy != "lut_gemv" and self.packed.out_group > 1:
