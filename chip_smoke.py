@@ -8,11 +8,12 @@ Phases, one result line each; any failure raises and exits non-zero:
   1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
      parallel, sm_90a), link and load; one line per kernel with registers
      and spills, and the redesigned sources' kernels (flash decode's three,
-     J2's) must not spill;
+     J2's, G's and its fold's, B's) must not spill;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      inputs, error, CUDA-event median times and profiler device times, at
      the shapes its path gives it: the projections at the Llama-2-7B shapes
-     and a padded d_out (the bf16x2 dequant-matmul at 7/8/16/256/1024 rows,
+     and a padded d_out (the lookup at 1 token (A) and 2/3/4/8 (B, with its
+     shared-memory floor), the bf16x2 dequant-matmul at 7/8/16/256/1024 rows,
      and with per-subvector codebooks at 8/256); flash
      decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
      layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
@@ -22,16 +23,17 @@ Phases, one result line each; any failure raises and exits non-zero:
      PQ16 and at RQ's 4 codebooks, f32 at PQ16 and at the refine bounds' 8
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
      int8, int16) a 7B projection; the precision tiers at the 7B projection
-     shapes: the W8A8 dequant-matmul at 7/8/16/256 rows, the f32 one at
+     shapes: the W8A8 dequant-matmul and its fold kernel at 7/8/16/256 rows
+     (and the kernels one whole W8A8 call launches, by the profiler), the f32 one at
      7/256/1024 rows (and at 8/256 with per-subvector codebooks and with
-     d_subvec 3, its general path), ``pairf`` at one token; both dequant
-     kernels, the attention kernels and the nibble lookups give bit-equal
+     d_subvec 3, its general path), ``pairf`` at one token; the three dequant
+     kernels, B, the attention kernels and the nibble lookups give bit-equal
      outputs from two calls; the T-MAC W4 nibble lookups (J1 at one token's f32
      table, J2 at 2, 8 and 16 tokens' bf16 tables, with J2's shared-memory
      lookup floor) at the 7B projection shapes and 4096 -> 28672.  Wrong-rounding
      controls must fail each kernel's tolerance (the int8 and int16 lookups
-     and the W8A8 matmul must equal their plain versions, ``pairf`` the
-     ``pair`` kernel; truncating instead of rounding must not).  Each row
+     and the W8A8 matmul and fold must equal their plain versions, ``pairf``
+     the ``pair`` kernel; truncating instead of rounding must not).  Each row
      also times one PyTorch library call computing the same function (events
      and device) and states the least time the card could take (bytes or
      operations);
@@ -61,8 +63,8 @@ Phases, one result line each; any failure raises and exits non-zero:
      int16 and f32 table kernels must launch in theirs, and the refined
      search must return the exact f32-table top-100;
   6. tiers (run after phase 4, on its model): (a) batcher run (iv), run
-     (i)'s 16 requests at ``quality="fast"``: the W8A8 kernel must launch at
-     every 8-row decode tick and the bf16x2 one never, and a B=8 step from
+     (i)'s 16 requests at ``quality="fast"``: the W8A8 kernel and its fold
+     must launch at every 8-row decode tick and the bf16x2 one never, and a B=8 step from
      its caches must match the plain versions' fast step as in phase 4; (b)
      one B=1 decode step with ``variant="pairf"``, 224 ``pairf`` launches,
      logits equal to the ``pair`` step's; (c) ``sequence_logprobs`` of 4 × 256
@@ -90,8 +92,10 @@ repository beside it, the script exits non-zero and prints no result.
 
 profiles batcher runs (iv) (``quality="fast"``), (ii) (paged) and (i)
 instead: device busy share, launches and device time by kernel
-(torch.profiler), flash decode's share of it, and a B=8 decode step, flash
-against einsum attention.
+(torch.profiler), flash decode's share of it (and in run (iv) the W8A8
+kernel's and its fold's), a B=8 decode step, flash against einsum
+attention, and phase 3 (a)'s B=4 decode tok/s.  Copied into an earlier
+tree's checkout it profiles that tree the same way.
 
     python3 chip_smoke.py --guard     # phases 0-1, then 2-4, 6 and 7 guarded
 
@@ -123,14 +127,14 @@ import torch
 # <= 1.6e-7 (lut_gemv) and <= 2.9e-5 (dequant_mm, tensor-core accumulation);
 # the wrong rounding (LUT left in f32, codebook sum rounded to bf16) reads
 # ~1.5e-3, and phase 2 checks in every run that such a control fails.
-KERNEL_TOL = {"lut_gemv": 1e-5, "dequant_mm": 2e-4}
+KERNEL_TOL = {"lut_gemv": 1e-5, "lut_gemv_bpair": 1e-5, "dequant_mm": 2e-4}
 # The table lookups: int8 and int16 sum integers exactly, so kernel and plain
 # version must be equal (0).  The f32 one sums f32 in another order than the
 # plain version; its limit, and the bf16-table control it must reject, are
 # set from the H100 readings in PERF.md.
-TABLE_TOL = {"lut_gemv": KERNEL_TOL["lut_gemv"], "lut_gemv_f32": 1e-5,
+TABLE_TOL = {"lut_gemv_bpair": KERNEL_TOL["lut_gemv_bpair"], "lut_gemv_f32": 1e-5,
              "lut_gemv_i8": 0.0, "lut_gemv_i16": 0.0}
-TABLE_VARIANTS = {"lut_gemv": "bpair", "lut_gemv_f32": "f32", "lut_gemv_i8": "i8",
+TABLE_VARIANTS = {"lut_gemv_bpair": "bpair", "lut_gemv_f32": "f32", "lut_gemv_i8": "i8",
                   "lut_gemv_i16": "i16"}
 ANN_N = 1_000_000  # database codes of the scan rows and of phase 5
 # (B, G, K) of each scan row over ANN_N codes, and the lookups held to their
@@ -138,22 +142,25 @@ ANN_N = 1_000_000  # database codes of the scan rows and of phase 5
 # (e), SDC, MixedPQ), their first 8 subquantizers (the bounds of (d)), RQ's
 # 4 codebooks, and a lone query at K=128
 TABLE_SCANS = {
-    (8, 16, 256): ("lut_gemv", "lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
+    (8, 16, 256): ("lut_gemv_bpair", "lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
     (8, 8, 256): ("lut_gemv_f32",),
-    (8, 4, 256): ("lut_gemv",),
+    (8, 4, 256): ("lut_gemv_bpair",),
     (1, 16, 128): ("lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and operations/s
 # by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-# J2's lookup floor: its shared-memory bytes at 128 B a clock an SM, at the
-# card's maximum SM clock (nvidia-smi clocks.max.sm, read in phase 0)
+# J2's and B's lookup floor: their shared-memory bytes at 128 B a clock an
+# SM, at the card's maximum SM clock (nvidia-smi clocks.max.sm, read in
+# phase 0)
 SMEM_BYTES_CLK = 128
 SM_CLOCK_HZ = None
 # kernels of the sources redesigned for Hopper that phase 1 holds to zero
-# spills: csrc/flash_decode.cu (D, F) and csrc/lut_nibbles.cu (J2)
-NO_SPILL_KERNELS = ("decode_scores", "decode_values", "decode_combine", "lut_nibbles_bf16")
+# spills: csrc/flash_decode.cu (D, F), csrc/lut_nibbles.cu (J2),
+# csrc/dequant_mm_i8.cu (G and the W8A8 fold) and csrc/lut_bpair.cu (B)
+NO_SPILL_KERNELS = ("decode_scores", "decode_values", "decode_combine", "lut_nibbles_bf16",
+                    "dequant_mm_i8", "fold_i8", "lut_bpair")
 # flash decode's kernels as the profiler names them (this tree's and the
 # single-kernel design before it), for --profile's share of device time
 DECODE_KERNELS = re.compile(r"flash_decode<|decode_(scores|values|combine)")
@@ -166,7 +173,7 @@ LOGITS_TOL = 2.5e-2
 SHAPES = (  # (d_in, d_out): the Llama-2-7B projections, and a padded d_out
     (4096, 4096), (4096, 11008), (11008, 4096), (4096, 1100),
 )
-LUT_BATCHES = (1, 2, 3, 4, 8)  # decode rows: 1 token tile, ragged and full
+LUT_BATCHES = (1, 2, 3, 4, 8)  # decode rows: A at 1 token, B at 2-8 (ragged and full tiles)
 # C's rows: phase 2's 7 and 16, the batcher's 8 decode rows (every tick of
 # phase 4), phase 3's 256 prefill rows, phase 6 (c)'s 1024 scoring rows.
 # Each tile of csrc/dequant_mm.cu (8, 16, 64 rows) and its split-K meet
@@ -185,7 +192,8 @@ PATH_ROWS = (8, 256)
 # (lut_gemv_pairf): equal to the pair kernel, within 1e-5 of plain.
 I8_ROWS = (7, 8, 16, 256)
 F32_ROWS = (7, 256, 1024)  # phase 6 (c) scores 4 x 256 tokens: 1024 rows
-TIER_TOL = {"dequant_mm_i8": 0.0, "dequant_mm_f32": 1e-5, "lut_gemv_pairf": 1e-5}
+TIER_TOL = {"dequant_mm_i8": 0.0, "fold_i8": 0.0, "dequant_mm_f32": 1e-5,
+            "lut_gemv_pairf": 1e-5}
 EVAL_B, EVAL_T = 4, 256  # phase 6 (c): sequences scored under each tier
 # Kernel J, the T-MAC W4 nibble lookups (phase 2 rows and phase 7): the
 # T-MAC scheme tmac(d_in, bits=4, group=4), K=16, with scales and zero
@@ -250,7 +258,8 @@ PREFILL_CASES = (  # (H, H_kv, T, offsets, KV dtype, Dh): chunked admission, rag
     (32, 32, 256, (512,), "bf16", 128), (32, 8, 64, RAGGED, "int8", 64),
 )
 SUMMARY_AT = {
-    "lut_gemv": "4096x4096 B=1", "dequant_mm": "4096x4096 rows=256",
+    "lut_gemv": "4096x4096 B=1", "lut_gemv_bpair": "4096x4096 B=8",
+    "dequant_mm": "4096x4096 rows=256", "fold_i8": "4096x4096 rows=8",
     "flash_decode": "B=8 H=32/32 W=2048 int8",
     "flash_decode_paged": "B=8 H=32/32 W=2048 int8",
     "flash_prefill": "B=1 H=32/32 T=256 off=(512,)",
@@ -328,10 +337,12 @@ def kernel_times(kernel, plain, library, reps=10, plain_reps=5):
     """A row's times: the kernel's wrapper and the library call by CUDA
     events (``ms``, ``library_ms``; the host's dispatch included) and by the
     profiler (``device_ms``, ``library_device_ms``: the card's kernels
-    alone), the plain version by events."""
+    alone), the plain version by events.  ``library`` None: no one PyTorch
+    call computes the function."""
     return dict(ms=time_ms(kernel, reps=reps), device_ms=device_ms(kernel, calls=10),
-                plain_ms=time_ms(plain, reps=plain_reps), library_ms=time_ms(library, reps=reps),
-                library_device_ms=device_ms(library, calls=10))
+                plain_ms=time_ms(plain, reps=plain_reps),
+                library_ms=None if library is None else time_ms(library, reps=reps),
+                library_device_ms=None if library is None else device_ms(library, calls=10))
 
 
 def attention_modules():
@@ -367,10 +378,24 @@ def with_bound(row, n_bytes, ops, kind):
     return row
 
 
+def lookup_floor_ms(smem_bytes):
+    """A lookup kernel's floor: ``smem_bytes`` read from shared memory at
+    ``SMEM_BYTES_CLK`` an SM on every SM at the card's maximum clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * smem_bytes / (SMEM_BYTES_CLK * sms * SM_CLOCK_HZ)
+
+
+def floor_text(floor_ms):
+    return "" if floor_ms is None else (
+        f"  lookup floor {floor_ms:.4f} ms (shared memory, {SMEM_BYTES_CLK} B/clk an SM at "
+        f"{SM_CLOCK_HZ / 1e6:.0f} MHz)")
+
+
 def times(r):
+    library = "none" if r["library_ms"] is None else (
+        f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})")
     return (f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  plain {r['plain_ms']:.4f} "
-            f"ms  library {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"ms  library {library}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def dense_bf16(cfg, packed):
@@ -484,7 +509,10 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(strict=True):
+    """Build and load the kernels; with ``strict`` every kernel of
+    ``NO_SPILL_KERNELS`` must be in the build and spill nothing (``--profile``
+    also profiles an earlier tree, which lacks some of them)."""
     from tpu_lutvq_torch.kernels import _build
 
     _build.library()
@@ -505,9 +533,9 @@ def phase_build():
             kernel = next((k for k in NO_SPILL_KERNELS if name.startswith(k)), None)
             if kernel:
                 seen.add(kernel)
-                check("0 bytes spill stores, 0 bytes spill loads" in spill,
+                check("0 bytes spill stores, 0 bytes spill loads" in spill or not strict,
                       f"{name} spills: {spill}")
-    check(seen == set(NO_SPILL_KERNELS), f"kernels missing from the build log: "
+    check(seen == set(NO_SPILL_KERNELS) or not strict, f"kernels missing from the build log: "
           f"{sorted(set(NO_SPILL_KERNELS) - seen)}")
 
 
@@ -521,7 +549,7 @@ def phase_kernels(device):
     lut_control = lut_lookup_variant(exact=False)
 
     gen = torch.Generator(device).manual_seed(1234)
-    rows = {"lut_gemv": [], "dequant_mm": []}
+    rows = {"lut_gemv": [], "lut_gemv_bpair": [], "dequant_mm": []}
     for d_in, d_out in SHAPES:
         cfg = aqlm_2x8(d_in, shared_codebook=True)
         packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
@@ -530,12 +558,19 @@ def phase_kernels(device):
             x = torch.randn((b, d_in), generator=gen, device=device)
             lut = build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16)
             args = (lut, packed.codes_t, packed.scales, packed.d_out)
-            got, want = lg.lut_lookup(*args), lg.lut_lookup_plain(*args)
+            got, again = lg.lut_lookup(*args), lg.lut_lookup(*args)
+            want = lg.lut_lookup_plain(*args)
             torch.cuda.synchronize()
             xb = x.to(torch.bfloat16)
-            rows["lut_gemv"].append(with_bound(dict(
+            # B's floor: its token tile's bf16 entries from shared memory per
+            # group and column
+            bp = next(t for t in (2, 4, 8) if t >= b)
+            smem = cfg.n_groups * packed.codes_t.shape[1] * bp * 2
+            rows["lut_gemv" if b == 1 else "lut_gemv_bpair"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} B={b}", rel=rel_err(got, want),
                 abs=float((got - want).abs().max()), control=rel_err(lut_control(*args), want),
+                equal=bool(torch.equal(got, again)),
+                floor_ms=None if b == 1 else lookup_floor_ms(smem),
                 **kernel_times(lambda: lg.lut_lookup(*args), lambda: lg.lut_lookup_plain(*args),
                                lambda: xb @ w.T, reps=20, plain_reps=20),
             ), nbytes(*args[:3], got), b * cfg.n_groups * d_out, "f32"))
@@ -558,7 +593,8 @@ def phase_kernels(device):
         for r in rs:
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
-                  + times(r) + (f"  two calls bit-equal {r['equal']}" if "equal" in r else ""))
+                  + times(r) + floor_text(r.get("floor_ms"))
+                  + (f"  two calls bit-equal {r['equal']}" if "equal" in r else ""))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
             check(r.get("equal", True), f"{name} {r['shape']}: two calls differ")
@@ -723,35 +759,68 @@ def truncating_folds():
         dq.fold_activations_i8 = saved
 
 
+def launched_kernels(fn):
+    """The CUDA kernels one warm ``fn()`` launches (torch.profiler): {name:
+    count}, without the fills of ``--guard``'s bands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
+
+
 def phase_tiers(device):
     """The precision tiers' kernels against their plain versions at the
-    Llama-2-7B projection shapes: the W8A8 dequant-matmul (G) on prepared
-    int8 inputs, bit for bit, against a truncating fold; the f32 one (L)
-    against the bf16x2 function; ``pairf`` (M) equal to the ``pair``
-    kernel (A) on the same f32 table, against f32 entries (K's function).
-    ``wrapper_ms`` times the whole ``dequant_matmul``/``lut_gemv`` call."""
+    Llama-2-7B projection shapes: the W8A8 dequant-matmul (G) on the fold
+    kernel's int8 inputs, bit for bit, two calls bit-equal, against a
+    truncating fold; the fold kernel bit for bit ``fold_activations_i8``,
+    against the same control; the kernels one whole ``dequant_matmul(tables=
+    "i8")`` call launches (the profiler: the fold and G, the tables cached);
+    the f32 one (L) against the bf16x2 function; ``pairf`` (M) equal to the
+    ``pair`` kernel (A) on the same f32 table, against f32 entries (K's
+    function).  ``wrapper_ms`` times the whole ``dequant_matmul``/``lut_gemv``
+    call."""
     from tpu_lutvq_torch import VQConfig, aqlm_2x8, init_vq_params
     from tpu_lutvq_torch.kernels.lut_ctor import build_lut
 
     lg, dq = kernel_modules()
     gen = torch.Generator(device).manual_seed(777)
-    rows = {"dequant_mm_i8": [], "dequant_mm_f32": [], "lut_gemv_pairf": []}
+    rows = {"dequant_mm_i8": [], "fold_i8": [], "dequant_mm_f32": [], "lut_gemv_pairf": []}
     for d_in, d_out in SHAPES:
         cfg = aqlm_2x8(d_in, shared_codebook=True)
         packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
         w_bf16 = dense_bf16(cfg, packed)
-        q, s = dq.quantize_tables_i8(cfg, packed.codebook)
+        q, s = dq.tables_i8(cfg, packed.codebook)
         w_i8 = dq.weight_i8(cfg, packed, q).reshape(d_out, -1).contiguous()
+        m = cfg.n_subvec
         for r in I8_ROWS:
             x = torch.randn((r, d_in), generator=gen, device=device)
-            x_i8, xs = dq.fold_activations_i8(cfg, x, s)
+            x_i8, xs = dq.fold_i8(cfg, x, s)  # the fold kernel: padded rows
+            plain_x, plain_xs = dq.fold_activations_i8(cfg, x, s)
+            trunc_x, trunc_xs = truncating_fold(cfg, x, s)
             args = (cfg, packed, x_i8, xs, q)
-            got, want = dq.dequant_mm_i8(*args), dq.dequant_mm_i8_plain(*args)
-            control = dq.dequant_mm_i8_plain(cfg, packed, *truncating_fold(cfg, x, s), q)
+            got, again = dq.dequant_mm_i8(*args), dq.dequant_mm_i8(*args)
+            want = dq.dequant_mm_i8_plain(*args)
+            control = dq.dequant_mm_i8_plain(cfg, packed, trunc_x, trunc_xs, q)
             y = dq.dequant_matmul(cfg, packed, x, tables="i8")
             y_plain = dq.dequant_matmul(cfg, packed, x, tables="i8", plain=True)
             torch.cuda.synchronize()
-            x2 = x_i8.reshape(r, -1)
+            call_ks = launched_kernels(lambda: dq.dequant_matmul(cfg, packed, x, tables="i8"))
+            rows["fold_i8"].append(with_bound(dict(
+                shape=f"{d_in}x{d_out} rows={r}",
+                rel=rel_err(x_i8[:, :, :m].float(), plain_x.float()),
+                abs=float((x_i8[:, :, :m].float() - plain_x.float()).abs().max()),
+                equal=bool(torch.equal(xs, plain_xs)) and not bool(x_i8[:, :, m:].any()),
+                control=rel_err(trunc_x.float(), plain_x.float()), library="none",
+                **kernel_times(lambda: dq.fold_i8(cfg, x, s),
+                               lambda: dq.fold_activations_i8(cfg, x, s), None),
+            ), nbytes(x, s, x_i8, xs), 2 * r * cfg.n_codebook * d_in, "f32"))
+            x2 = plain_x.reshape(r, -1)
             # torch._int_mm's shape rules: more than 16 rows, K and N multiples of 8
             if r > 16 and x2.shape[1] % 8 == 0 and d_out % 8 == 0:
                 library, call = (lambda: torch._int_mm(x2, w_i8.T)), "torch._int_mm int8"
@@ -761,6 +830,7 @@ def phase_tiers(device):
             rows["dequant_mm_i8"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} rows={r}", rel=rel_err(got, want),
                 equal=bool(torch.equal(got, want)), abs=float((got - want).abs().max()),
+                calls_equal=bool(torch.equal(got, again)), call_kernels=call_ks,
                 control=rel_err(control, want), wrapper_rel=rel_err(y, y_plain),
                 **kernel_times(lambda: dq.dequant_mm_i8(*args),
                                lambda: dq.dequant_mm_i8_plain(*args), library),
@@ -810,12 +880,25 @@ def phase_tiers(device):
                 extra += f"  pair kernel {r['pair_ms']:.4f} ms"
             if name == "dequant_mm_f32":
                 extra += f"  two calls bit-equal {r['equal']}"
+            if name == "fold_i8":
+                extra += f"  xs equal, padding zero {r['equal']}"
+            if "calls_equal" in r:
+                n_call = sum(r["call_kernels"].values())
+                extra += (f"  two calls bit-equal {r['calls_equal']}  whole call launches "
+                          f"{n_call} kernels: " + ", ".join(
+                              f"{k[:40]} x{c}" for k, c in r["call_kernels"].items()))
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
                   + times(r) + f" [library: {r['library']}]" + extra)
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
             check(r.get("equal", True), f"{name} {r['shape']}: not equal to its reference")
+            check(r.get("calls_equal", True), f"{name} {r['shape']}: two calls differ")
+            if "call_kernels" in r:
+                ks = r["call_kernels"]
+                check(sum(ks.values()) == 2 and any("fold_i8" in k for k in ks)
+                      and any("dequant_mm_i8" in k for k in ks),
+                      f"{name} {r['shape']}: dequant_matmul(tables='i8') launched {ks}")
             check(r.get("wrapper_rel", 0.0) == 0.0,
                   f"{name} {r['shape']}: dequant_matmul differs from plain: {r.get('wrapper_rel')}")
     return rows
@@ -895,9 +978,7 @@ def phase_nibbles(device):
                 tiles = [min(8, b - i) for i in range(0, b, 8)]
                 smem = sum(packed.codes_t.shape[0] * packed.codes_t.shape[1] * 2 * 2 *
                            next(t for t in (2, 4, 8) if t >= n) for n in tiles if n > 1)
-                floor = None if f32 else 1e3 * smem / (
-                    SMEM_BYTES_CLK * torch.cuda.get_device_properties(0).multi_processor_count
-                    * SM_CLOCK_HZ)
+                floor = None if f32 else lookup_floor_ms(smem)
                 rows[name].append(with_bound(dict(
                     shape=f"tmac {d_in}x{d_out} B={b}", rel=rel_err(got, want),
                     abs=float((got - want).abs().max()), control=rel_err(control, want),
@@ -911,12 +992,9 @@ def phase_nibbles(device):
         del w, packed, params
     for name, rs in rows.items():
         for r in rs:
-            floor = "" if r["floor_ms"] is None else (
-                f"  lookup floor {r['floor_ms']:.4f} ms (shared memory, {SMEM_BYTES_CLK} B/clk "
-                f"an SM at {SM_CLOCK_HZ / 1e6:.0f} MHz)")
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol "
                   f"{NIBBLE_TOL:.0e}, wrong-precision control {r['control']:.3e}) abs err "
-                  f"{r['abs']:.3e}  " + times(r) + floor + f"  whole lut_gemv "
+                  f"{r['abs']:.3e}  " + times(r) + floor_text(r["floor_ms"]) + f"  whole lut_gemv "
                   f"{r['wrapper_ms']:.4f} ms  two calls bit-equal {r['equal']}")
             check(r["rel"] <= NIBBLE_TOL, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["equal"], f"{name} {r['shape']}: two calls differ")
@@ -1145,31 +1223,37 @@ def model(device):
     return cfg, weights
 
 
-def phase_slice(device, cfg, weights):
-    from tpu_lutvq_torch.runtime import generate
-
-    lg, dq = kernel_modules()
+def slice_requests(cfg):
+    """Phase 3's requests from a seeded generator: (a) a ragged B=4 batch for
+    32 new tokens, (b) one 16-token prompt for 16."""
     ids = torch.Generator().manual_seed(1)
 
     def prompt(n):
         return torch.randint(0, cfg.vocab_size, (n,), generator=ids).tolist()
 
-    requests = {
-        "a": dict(prompts=[prompt(n) for n in (7, 19, 33, 64)], new=32),
-        "b": dict(prompts=[prompt(16)], new=16),
-    }
+    return {"a": dict(prompts=[prompt(n) for n in (7, 19, 33, 64)], new=32),
+            "b": dict(prompts=[prompt(16)], new=16)}
+
+
+def phase_slice(device, cfg, weights):
+    from tpu_lutvq_torch.runtime import generate
+
+    requests = slice_requests(cfg)
     generate(cfg, weights, requests["b"]["prompts"], 2)  # warm-up: lazy inits
     for r in requests.values():  # prefill-only timing runs, before the counted run
         _, r["prefill_s"] = timed(lambda: generate(cfg, weights, r["prompts"], 1))
 
-    lg.LUT_GEMV_LAUNCHES = 0
-    dq.DEQUANT_MM_LAUNCHES = 0
+    names = ("lut_gemv", "lut_gemv_bpair", "dequant_mm")  # A (B=1), B (B=4), C (prefill)
+    for k in names:
+        setattr(*counters()[k], 0)
     for name, r in requests.items():
-        before = (lg.LUT_GEMV_LAUNCHES, dq.DEQUANT_MM_LAUNCHES)
+        before = [getattr(*counters()[k]) for k in names]
         r["res"], r["total_s"] = timed(lambda: generate(cfg, weights, r["prompts"], r["new"]))
-        r["launches"] = (lg.LUT_GEMV_LAUNCHES - before[0], dq.DEQUANT_MM_LAUNCHES - before[1])
-        check(min(r["launches"]) > 0, f"request {name}: a kernel did not launch {r['launches']}")
-    launches = {"lut_gemv": lg.LUT_GEMV_LAUNCHES, "dequant_mm": dq.DEQUANT_MM_LAUNCHES}
+        r["launches"] = [getattr(*counters()[k]) - n for k, n in zip(names, before)]
+        lookup = r["launches"][1 if len(r["prompts"]) > 1 else 0]
+        check(lookup > 0 and r["launches"][2] > 0,
+              f"request {name}: a kernel did not launch {dict(zip(names, r['launches']))}")
+    launches = {k: getattr(*counters()[k]) for k in names}
 
     for name, r in requests.items():
         lens = [len(p) for p in r["prompts"]]
@@ -1190,7 +1274,7 @@ def phase_slice(device, cfg, weights):
         ) / (b * new)
         decode_tps = b * (new - 1) / (r["total_s"] - r["prefill_s"])
         print(f"[slice] request {name}: B={b} prompts {lens} new {new}; launches "
-              f"lut_gemv {r['launches'][0]} dequant_mm {r['launches'][1]}; tokens agreeing "
+              + " ".join(f"{k} {n}" for k, n in zip(names, r["launches"])) + "; tokens agreeing "
               f"with plain {agree:.3f}; prefill {1e3 * r['prefill_s']:.1f} ms; decode "
               f"{decode_tps:.1f} tok/s (host clock, {r['total_s']:.2f} s total)")
         print(f"[slice] request {name}: logits rel err vs plain, prefill/step: " + ", ".join(
@@ -1231,7 +1315,8 @@ def step_errors(cfg, weights, caches, tok, pos):
 def counters():
     lg, dq = kernel_modules()
     fd, fp = attention_modules()
-    return {"lut_gemv": (lg, "LUT_GEMV_LAUNCHES"), "dequant_mm": (dq, "DEQUANT_MM_LAUNCHES"),
+    return {"lut_gemv": (lg, "LUT_GEMV_LAUNCHES"), "lut_gemv_bpair": (lg, "LUT_GEMV_BPAIR_LAUNCHES"),
+            "dequant_mm": (dq, "DEQUANT_MM_LAUNCHES"), "fold_i8": (dq, "FOLD_I8_LAUNCHES"),
             "flash_decode": (fd, "FLASH_DECODE_LAUNCHES"),
             "flash_decode_paged": (fd, "FLASH_DECODE_PAGED_LAUNCHES"),
             "flash_prefill": (fp, "FLASH_PREFILL_LAUNCHES"),
@@ -1370,10 +1455,10 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
         decode = b._decode
 
         def counted(*a, **kw):
-            before = dq.DEQUANT_MM_I8_LAUNCHES, dq.DEQUANT_MM_LAUNCHES
+            before = dq.DEQUANT_MM_I8_LAUNCHES, dq.DEQUANT_MM_LAUNCHES, dq.FOLD_I8_LAUNCHES
             out = decode(*a, **kw)
             ticks.append((out.shape[0], dq.DEQUANT_MM_I8_LAUNCHES - before[0],
-                          dq.DEQUANT_MM_LAUNCHES - before[1]))
+                          dq.DEQUANT_MM_LAUNCHES - before[1], dq.FOLD_I8_LAUNCHES - before[2]))
             return out
         b._decode = counted
 
@@ -1386,16 +1471,19 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
     print(f"[tiers] (a) batcher run iv slab auto quality=fast: {len(outs)} requests, {n_tok} "
           f"tokens in {secs:.2f} s, {n_tok / secs:.1f} tok/s delivered (host clock; run i "
           f"{sum(len(o) for o in base['outs'].values()) / base['secs']:.1f}); {len(ticks)} "
-          f"decode ticks, W8A8 launches per tick {sorted({g for _, g, _ in ticks})}; tokens "
+          f"decode ticks, W8A8 launches per tick {sorted({g for _, g, _, _ in ticks})}; tokens "
           f"equal to run i's {agree:.3f}; launches "
           + " ".join(f"{k} {v}" for k, v in launches.items()))
     check(sorted(outs) == list(range(len(prompts))), "run iv: requests missing")
     for i, o in outs.items():
         check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
               f"run iv: request {i} malformed")
-    check(len(ticks) > 0 and all(g == per_step * h and c == 0 for h, g, c in ticks),
-          f"run iv: a decode tick missed the W8A8 kernel or took bf16x2: {ticks[:4]}")
+    check(len(ticks) > 0 and all(g == per_step * h == f and c == 0 for h, g, c, f in ticks),
+          f"run iv: a decode tick missed the W8A8 kernel or its fold, or took bf16x2: "
+          f"{ticks[:4]}")
     check(launches["dequant_mm"] == 0, "run iv: the bf16x2 kernel launched")
+    check(launches["fold_i8"] == launches["dequant_mm_i8"],
+          f"run iv: {launches['fold_i8']} folds for {launches['dequant_mm_i8']} W8A8 launches")
     pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
     tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
     errs, finite = fast_step_errors(cfg, weights, b.caches, tok, pos)
@@ -1406,7 +1494,7 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
     check(errs["kernel"] <= LOGITS_TOL, f"fast B=8 step logits disagree: {errs}")
     check(errs["attn_p_f32"] > LOGITS_TOL, "fast B=8 step: tolerance passes the p_f32 control")
     check(errs["i8_trunc"] > LOGITS_TOL, "fast B=8 step: tolerance passes the truncating fold")
-    result = {"dequant_mm_i8": launches["dequant_mm_i8"]}
+    result = {"dequant_mm_i8": launches["dequant_mm_i8"], "fold_i8": launches["fold_i8"]}
     del b
 
     # (b) one B=1 decode step through the pairf kernel, against the pair step
@@ -1468,12 +1556,16 @@ def phase_profile(device, cfg, weights):
     """``--profile``: where the time of batcher runs (iv) (phase 6,
     ``quality="fast"``), (i) and (ii) (paged) goes.  Each run once
     unprofiled and once under torch.profiler (device busy share, kernel
-    launches, device time by kernel, flash decode's share of it), then a B=8
-    decode step from run (i)'s caches under each attention path (host clock,
-    5 steps each, flash and einsum alternated)."""
+    launches, device time by kernel, flash decode's share of it, and in run
+    (iv) the W8A8 kernel's and its fold's), then a B=8 decode step from run
+    (i)'s caches under each attention path (host clock, 5 steps each, flash
+    and einsum alternated), then phase 3 (a)'s decode tok/s (three runs).
+    It runs on an earlier tree too (copied into its checkout), whose kernels
+    and counters it does not require."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_lutvq_torch.models.llama import llama_decode_step
+    from tpu_lutvq_torch.runtime import generate
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
     prompts, _, ids = batcher_prompts(cfg)
@@ -1499,6 +1591,13 @@ def phase_profile(device, cfg, weights):
         print(f"[profile] run ({run}): flash decode {ms:.1f} ms, {100 * ms / 1e3 / busy:.1f} % of "
               f"device time, {sum(e.count for e in decode)} kernel launches over "
               f"{len(decode)} kernels")
+        if run == "iv":
+            for label, pattern in (("G", "dequant_mm_i8"), ("the fold kernel", "fold_i8")):
+                found = [e for e in on_device if pattern in e.key]
+                ms = sum(e.self_device_time_total for e in found) / 1e3
+                print(f"[profile] run (iv): {label} ({pattern}*) {ms:.1f} ms, "
+                      f"{100 * ms / 1e3 / busy:.1f} % of device time, "
+                      f"{sum(e.count for e in found)} launches over {len(found)} kernels")
 
     pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
     tok = torch.randint(0, cfg.vocab_size, (N_SLOTS,), generator=ids).to(device, torch.int32)
@@ -1509,6 +1608,16 @@ def phase_profile(device, cfg, weights):
             cfg, weights, tok, b.caches, pos, window=window, attn=attn) for _ in range(5)])[1])
     print(f"[profile] B={N_SLOTS} decode step at window {window}, ms per step: "
           + ", ".join(f"{a} " + " / ".join(f"{t:.1f}" for t in ts) for a, ts in step_ms.items()))
+    del b
+    req = slice_requests(cfg)["a"]
+    generate(cfg, weights, req["prompts"], 2)  # warm-up
+    rates = []
+    for _ in range(3):
+        prefill_s = timed(lambda: generate(cfg, weights, req["prompts"], 1))[1]
+        total_s = timed(lambda: generate(cfg, weights, req["prompts"], req["new"]))[1]
+        rates.append(len(req["prompts"]) * (req["new"] - 1) / (total_s - prefill_s))
+    print(f"[profile] phase 3 (a) B={len(req['prompts'])} decode: "
+          + " / ".join(f"{r:.1f}" for r in rates) + " tok/s (host clock)")
 
 
 def ann_data(device):
@@ -1632,7 +1741,7 @@ def phase_ann(device):
 
     results = {}
     for name, kw, must in (
-        ("(a) l2 f32 tables", dict(), ("lut_gemv",)),
+        ("(a) l2 f32 tables", dict(), ("lut_gemv_bpair",)),
         ("(b) l2 int8 tables", dict(table_dtype="int8"), ("lut_gemv_i8",)),
         ("(c) l2 int16 tables", dict(table_dtype="int16"), ("lut_gemv_i16",)),
     ):
@@ -1663,21 +1772,21 @@ def phase_ann(device):
         ("lut_gemv_f32",), exact_check)
     results["(e) ip f32 tables"] = ann_search(
         "(e) ip f32 tables", lambda q: pq.search(q, codes, topk=ANN_TOPK, metric="ip"),
-        queries, truth["ip"], "ip", ("lut_gemv",))
+        queries, truth["ip"], "ip", ("lut_gemv_bpair",))
 
     rq, secs = timed(lambda: ResidualQuantizer(ANN_D, 4, ANN_K).train(gen, train))
     rq_codes = rq.encode(base)
     print(f"[ann] RQ 4x{ANN_K}: trained in {secs:.2f} s, base encoded")
     ann_search("RQ4 ip", lambda q: rq.search(q, rq_codes, topk=ANN_TOPK), queries,
-               truth["ip"], "ip", ("lut_gemv",))
+               truth["ip"], "ip", ("lut_gemv_bpair",))
     ann_search("SDC l2", lambda q: sdc_search(pq, pq.encode(q), codes, topk=ANN_TOPK),
-               queries, truth["l2"], "l2", ("lut_gemv",))
+               queries, truth["l2"], "l2", ("lut_gemv_bpair",))
     mpq, secs = timed(lambda: MixedPQ(ANN_D, ANN_MIXED_KS).train(gen, train))
     mpq_codes = mpq.encode(base)
     print(f"[ann] MixedPQ ks {ANN_MIXED_KS[:2]}x{len(ANN_MIXED_KS) // 2}: trained in "
           f"{secs:.2f} s, base encoded")
     ann_search("MixedPQ l2", lambda q: mpq.search(q, mpq_codes, topk=ANN_TOPK), queries,
-               truth["l2"], "l2", ("lut_gemv",))
+               truth["l2"], "l2", ("lut_gemv_bpair",))
     return {"lut_gemv_i8": results["(b) l2 int8 tables"]["launches"]["lut_gemv_i8"],
             "lut_gemv_i16": results["(c) l2 int16 tables"]["launches"]["lut_gemv_i16"],
             "lut_gemv_f32": results["(d) l2 refined"]["launches"]["lut_gemv_f32"]}
@@ -2006,13 +2115,13 @@ def out_group_checks(device, cfg, weights, tensors, og):
         return launch(lut, *a)
 
     tok = torch.tensor([1], dtype=torch.int32, device=device)
-    lg._launch, lg.LUT_GEMV_LAUNCHES = recording, 0
+    lg._launch, lg.LUT_GEMV_LAUNCHES, lg.LUT_GEMV_BPAIR_LAUNCHES = recording, 0, 0
     try:
         llama_decode_step(cfg, weights, tok, init_caches(cfg, 1, device=device), 0)
         torch.cuda.synchronize()
     finally:
         lg._launch = launch
-    n = lg.LUT_GEMV_LAUNCHES
+    n = lg.LUT_GEMV_LAUNCHES + lg.LUT_GEMV_BPAIR_LAUNCHES  # A at 1 pseudo-row, B at 2-8
     print(f"[ckpt] (b) out_group {og}: a B=1 decode step launched B {n} times at "
           f"{sorted(set(rows))} pseudo-rows")
     check(n == 7 * cfg.n_layers and set(rows) == {og}, f"(b) B did not serve {og} pseudo-rows")
@@ -2034,7 +2143,10 @@ KERNELS = {
     "lut_gemv": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:344",
-        also_replaces=["tpu_lutvq/kernels/lut_gemv.py:376"],
+    ),
+    "lut_gemv_bpair": dict(
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_bpair.cu",
+        replaces="tpu_lutvq/kernels/lut_gemv.py:376",
     ),
     "dequant_mm": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/dequant_mm.cu",
@@ -2073,6 +2185,10 @@ KERNELS = {
         replaces="tpu_lutvq/kernels/dequant_mm.py:137",
         also_replaces=["tpu_lutvq/kernels/dequant_mm.py:188"],
     ),
+    "fold_i8": dict(  # the W8A8 activation fold: XLA ops in the JAX package, not Pallas
+        route="cuda", source="tpu_lutvq_torch/csrc/dequant_mm_i8.cu",
+        replaces="tpu_lutvq/kernels/dequant_mm.py:644",
+    ),
     "dequant_mm_f32": dict(
         route="cuda", source="tpu_lutvq_torch/csrc/dequant_mm_f32.cu",
         replaces="tpu_lutvq/kernels/dequant_mm.py:388",
@@ -2097,6 +2213,7 @@ LAUNCHES_FROM = {"flash_decode": "i slab auto", "flash_decode_paged": "ii paged 
 
 
 GUARD_PAD = 1 << 16  # bytes of 0xA5 on each side of a guarded buffer
+GUARDING = False  # under --guard every wrapper buffer is filled: one more kernel each
 
 
 class GuardBands:
@@ -2150,9 +2267,11 @@ def phase_guarded(device):
     """Phases 2, 3, 4, 6 and 7 with the kernel wrappers' buffers in guard bands."""
     mods = [importlib.import_module(f"tpu_lutvq_torch.kernels.{m}")
             for m in ("lut_gemv", "dequant_mm", "flash_decode", "flash_prefill")]
+    global GUARDING
     bands = GuardBands()
     for m in mods:
         m.torch = bands
+    GUARDING = True
     try:
         for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers, phase_nibbles):
             phase(device)
@@ -2168,6 +2287,7 @@ def phase_guarded(device):
         phase_tmac(device)
         bands.check("phase_tmac")
     finally:
+        GUARDING = False
         for m in mods:
             m.torch = torch
     print(f"[guard] {bands.checked} buffers checked, {len(bands.bad)} with a band written")
@@ -2188,7 +2308,7 @@ def main(mode=None):
 
     phase_device()
     device = torch.device("cuda")
-    phase_build()
+    phase_build(strict=mode != "--profile")
     if mode == "--profile":
         phase_profile(device, *model(device))
         return

@@ -1,5 +1,6 @@
-"""The dequant kernels' split plans (``kernels.dequant_mm.plan_bf16x2`` and
-``plan_f32``) and the fixed-order split reduce, checked on the CPU.
+"""The dequant kernels' split plans (``kernels.dequant_mm.plan_bf16x2``,
+``plan_i8`` and ``plan_f32``) and the fixed-order split reduce, checked on
+the CPU.
 
 The CUDA kernels cut d_in into k-steps and, where the output tiles cannot
 fill the card, hand consecutive runs of k-steps to blocks along grid z; a
@@ -7,9 +8,12 @@ second pass sums the splits' f32 partials in split order.  The plans are
 pure Python, so their cover of d_in is checked here at the row counts the
 main path gives the kernels (1 and 7-16 decode and phase-2 rows, 256 prefill
 rows, 1024 scoring rows) and the Llama-2-7B projection shapes; the reduce is
-emulated with the plain versions' per-split partials.  The f32 tables are
-also held to the JAX package at those row counts (the bf16x2 tables' cases
-are in ``test_torch_kernels.py``).
+emulated with the plain versions' per-split partials.  The W8A8 kernel's
+splits meet inside a thread-block cluster as exact integer sums: emulated
+with the plain version's integer partials, they equal JAX's
+``dequant_matmul(tables="i8")`` bit for bit.  The f32 tables are also held
+to the JAX package at those row counts (the bf16x2 tables' cases are in
+``test_torch_kernels.py``).
 """
 
 import importlib
@@ -74,6 +78,75 @@ def test_f32_plan_covers_d_in(rows, d_in, d_out):
     check_cover(plan)
     assert plan.steps * plan.step >= d_in > (plan.steps - 1) * plan.step
     assert plan.block_rows == (32 if rows <= 32 else 128)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("d_in,d_out", SHAPES_7B)
+@pytest.mark.parametrize("shared", [True, False])
+def test_i8_plan_covers_d_in(rows, d_in, d_out, shared):
+    """The W8A8 plan: every k-step (128 inputs with a shared codebook, 32
+    with per-subvector ones) in exactly one split, at most one cluster of 8
+    splits a tile, the tile chosen by rows as the bf16x2 kernel's."""
+    plan = tdq.plan_i8(rows, d_in // 8, d_out, shared, H100_SMS, 8)
+    check_cover(plan)
+    assert plan.step == (16 if shared else 4)
+    assert plan.steps * plan.step >= d_in // 8 > (plan.steps - 1) * plan.step
+    assert 1 <= plan.n_splits <= 8
+    cols, row_tiles, splits = plan.grid
+    assert cols * plan.block_cols >= d_out and row_tiles * plan.block_rows >= rows
+    assert plan.block_rows == (8 if rows <= 8 else 16 if rows <= 16 else 64)
+    # x_i8 rows are padded to whole 128-input steps: every split's k-steps read
+    # inside the padded row
+    cfg = tcore.aqlm_2x8(d_in)
+    assert tdq.i8_padded_subvec(cfg) * 8 % 128 == 0
+    assert plan.steps * plan.step <= tdq.i8_padded_subvec(cfg)
+
+
+def test_i8_decode_rows_split_in_one_cluster():
+    """At the batcher's 8 rows a 4096x4096 projection has 32 column tiles:
+    the plan splits d_in 8 ways, a full cluster a tile, 256 blocks."""
+    plan = tdq.plan_i8(8, 512, 4096, True, H100_SMS, 8)
+    assert plan.n_splits == 8 and np.prod(plan.grid) == 256
+    assert tdq.plan_i8(1024, 512, 4096, True, H100_SMS, 8).n_splits == 1
+
+
+def i8_split_sum(cfg, pk, x, plan):
+    """The W8A8 kernel's order: each split's int32 partial (the plain
+    version's integer products over its subvectors), the splits summed in
+    rank order, cast once, times xs then the scales."""
+    q, s = tdq.quantize_tables_i8(cfg, pk.codebook)
+    x_i8, xs = tdq.fold_i8(cfg, x, s)
+    w = tdq.weight_i8(cfg, pk, q).long()  # (d_out, N, M, d)
+    acc = torch.zeros((x.shape[0], pk.d_out), dtype=torch.int64)
+    for a, b in plan.split_ranges():
+        m0, m1 = a * plan.step, min(cfg.n_subvec, b * plan.step)
+        acc += torch.einsum("rnmd,jnmd->rj", x_i8[:, :, m0:m1].long(), w[:, :, m0:m1])
+    assert int(acc.abs().max()) < 2**31  # the kernel's int32 holds it
+    return acc.int().float() * xs[:, None] * pk.scales[:, : pk.d_out]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16, 256])
+@pytest.mark.parametrize("shared", [True, False])
+def test_i8_split_sum_matches_jax_bit_for_bit(rows, shared):
+    """The cluster's integer split sum at a plan that splits (8 SMs, 1024
+    inputs) equals JAX's W8A8 dequant_matmul in interpret mode bit for bit."""
+    rng = np.random.default_rng(70 + rows + shared)
+    jcfg = jcore.aqlm_2x8(1024, shared_codebook=shared)
+    tcfg = tcore.aqlm_2x8(1024, shared_codebook=shared)
+    cb = rng.standard_normal(jcfg.codebook_shape()).astype(np.float16)
+    codes = rng.integers(0, 256, (200, jcfg.n_subvec, 2)).astype(np.uint8)
+    sc = (1 + 0.1 * rng.standard_normal(200)).astype(np.float32)
+    jpk = jlut.pack_params(jcfg, jcore.VQParams(jnp.asarray(cb), jnp.asarray(codes),
+                                                jnp.asarray(sc)))
+    tpk = tlut.pack_params(tcfg, tcore.VQParams(torch.from_numpy(cb), torch.from_numpy(codes),
+                                                torch.from_numpy(sc)))
+    x = rng.standard_normal((rows, 1024)).astype(np.float32)
+    want = np.asarray(jdq.dequant_matmul(jcfg, jpk, jnp.asarray(x), tables="i8", interpret=True))
+    plan = tdq.plan_i8(rows, tcfg.n_subvec, 200, shared, 8, 8)
+    if rows <= 16:
+        assert plan.n_splits > 1
+    got = i8_split_sum(tcfg, tpk, torch.from_numpy(x), plan)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_decode_rows_fill_the_card():

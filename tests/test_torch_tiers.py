@@ -161,6 +161,65 @@ def test_dequant_matmul_i8_bit_exact_with_jax(rows, scales, zeros):
         assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_i8_tables_are_quantized_once_per_codebook(shared):
+    """``tables_i8`` returns the same (q, s) tensors on a second call, also
+    through a shard view of the pack; an in-place edit of the codebook
+    recomputes them (equal to a fresh quantization); and with the cache
+    warm ``dequant_matmul(tables="i8")`` stays bit-equal to JAX."""
+    jcfg, tcfg, jpk, tpk = aqlm(128, d_out=200, shared=shared, dtype=np.float32, seed=11)
+    q, s = tdq.tables_i8(tcfg, tpk.codebook)
+    again = tdq.tables_i8(tcfg, tlut.local_view(tpk).codebook)
+    assert again[0] is q and again[1] is s
+    fresh = tdq.quantize_tables_i8(tcfg, tpk.codebook)
+    assert torch.equal(q, fresh[0]) and torch.equal(s, fresh[1])
+    x = seeded_x(8, 128, 12)
+    want = np.asarray(jdq.dequant_matmul(jcfg, jpk, jnp.asarray(x), tables="i8", interpret=True))
+    for _ in range(2):
+        got = tdq.dequant_matmul(tcfg, tpk, torch.from_numpy(x), tables="i8")
+        assert np.array_equal(got.numpy(), want)
+    assert tdq.tables_i8(tcfg, tpk.codebook)[0] is q
+    with torch.no_grad():
+        tpk.codebook.mul_(-2.0)
+    edited = tdq.tables_i8(tcfg, tpk.codebook)
+    assert edited[0] is not q
+    fresh = tdq.quantize_tables_i8(tcfg, tpk.codebook)
+    assert torch.equal(edited[0], fresh[0]) and torch.equal(edited[1], fresh[1])
+    assert torch.equal(edited[0], -q) and torch.equal(edited[1], 2 * s)
+
+
+def test_i8_table_cache_drops_freed_codebooks():
+    _, tcfg, _, tpk = aqlm(64, shared=True, seed=13)
+    cb = tpk.codebook.clone()
+    tdq.tables_i8(tcfg, cb)
+    key = id(cb)
+    assert key in tdq._TABLES_I8
+    del cb
+    assert key not in tdq._TABLES_I8
+
+
+@pytest.mark.parametrize("d_in,shared", [(64, True), (136, False), (1024, True)])
+def test_fold_i8_pads_the_plain_fold(d_in, shared):
+    """``fold_i8`` (the fold kernel's wrapper; on the CPU its plain version)
+    writes ``fold_activations_i8``'s values padded with zero subvectors to
+    whole 128-input steps, the rows the W8A8 kernel reads."""
+    _, tcfg, _, tpk = aqlm(d_in, shared=shared, seed=d_in)
+    _, s = tdq.quantize_tables_i8(tcfg, tpk.codebook)
+    x = torch.from_numpy(seeded_x(3, d_in, 14))
+    before = tdq.FOLD_I8_LAUNCHES
+    x_pad, xs = tdq.fold_i8(tcfg, x, s)
+    assert tdq.FOLD_I8_LAUNCHES == before
+    want, want_xs = tdq.fold_activations_i8(tcfg, x, s)
+    mp = tdq.i8_padded_subvec(tcfg)
+    assert mp * 8 % 128 == 0 and mp - 16 < tcfg.n_subvec <= mp
+    assert x_pad.shape == (3, 2, mp, 8) and x_pad.dtype == torch.int8
+    assert torch.equal(x_pad[:, :, : tcfg.n_subvec], want) and not x_pad[:, :, tcfg.n_subvec :].any()
+    assert torch.equal(xs, want_xs)
+    q, _ = tdq.quantize_tables_i8(tcfg, tpk.codebook)
+    assert torch.equal(tdq.dequant_mm_i8(tcfg, tpk, x_pad, xs, q),
+                       tdq.dequant_mm_i8(tcfg, tpk, want, want_xs, q))
+
+
 def test_dequant_matmul_i8_matches_jax_grid_split():
     """70B w_down's d_in (28672), where JAX takes its v3 kernel
     (``tests/test_kernels.py:154``): it casts each quarter's int32 partial
@@ -508,6 +567,10 @@ def test_new_kernel_launches_reject_cpu_tensors():
     x_i8, xs = tdq.fold_activations_i8(tcfg, x, s)
     with pytest.raises(ValueError, match="CUDA"):
         tdq._launch_i8(tcfg, tpk, x_i8, xs, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdq._launch_i8(tcfg, tpk, *tdq.fold_i8(tcfg, x, s), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdq._launch_fold_i8(tcfg, x, s)
     with pytest.raises(ValueError, match="CUDA"):
         tdq._launch_f32(tcfg, tpk, x)
     lut = torch.zeros(1, tcfg.n_groups, 256)

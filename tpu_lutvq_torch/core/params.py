@@ -92,6 +92,14 @@ def init_vq_params(
     return VQParams(codebook=codebook, codes=codes, scales=scales, zero_points=zeros)
 
 
+def div_scalar(t: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``t / divisor`` as IEEE division on every device, as the JAX package
+    divides: torch's CUDA kernels multiply by the reciprocal when the
+    divisor is a Python number, which can round one bit away, so the
+    divisor goes in as a tensor on ``t``'s device."""
+    return t / torch.full((), divisor, dtype=t.dtype, device=t.device)
+
+
 def broadcast_codebook(cfg: VQConfig, codebook: torch.Tensor) -> torch.Tensor:
     """Expand a shared ``(1, N, K, d)`` codebook to ``(M, N, K, d)`` (a view)."""
     if codebook.shape[0] == cfg.n_subvec:

@@ -66,8 +66,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_lut_nibbles_bf16_clusters.restype = i32
     lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm.restype = i32
-    lib.lutvq_dequant_mm_i8.argtypes = [vp] * 7 + [i32] * 11 + [vp]
+    lib.lutvq_dequant_mm_i8.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm_i8.restype = i32
+    lib.lutvq_fold_i8.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+    lib.lutvq_fold_i8.restype = i32
+    lib.lutvq_lut_bpair.argtypes = [vp] * 4 + [i32] * 10 + [vp]
+    lib.lutvq_lut_bpair.restype = i32
+    lib.lutvq_lut_bpair_clusters.argtypes = [i32] * 4
+    lib.lutvq_lut_bpair_clusters.restype = i32
     lib.lutvq_dequant_mm_f32.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm_f32.restype = i32
     lib.lutvq_flash_decode.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.c_float, vp]

@@ -14,8 +14,10 @@ hand-written CUDA kernel with its plain PyTorch version beside it:
   an exact integer sum, then the token's and the output's scales
   (``dequant_mm.py:94-134, 602-719``).  Wrapper :func:`dequant_mm_i8`
   (``csrc/dequant_mm_i8.cu``, ``DEQUANT_MM_I8_LAUNCHES``), plain
-  :func:`dequant_mm_i8_plain`; :func:`quantize_tables_i8` and
-  :func:`fold_activations_i8` prepare their inputs.
+  :func:`dequant_mm_i8_plain`; :func:`quantize_tables_i8` (kept per
+  codebook by :func:`tables_i8`) and :func:`fold_activations_i8` (the
+  same source's fold kernel, :func:`fold_i8`, ``FOLD_I8_LAUNCHES``)
+  prepare their inputs.
 - ``f32`` (the oracle; every odd ``d_subvec``): x and the codebook in f32,
   the N entries summed in f32, an f32 contraction (``dequant_mm.py:830-924``).
   Wrapper :func:`dequant_mm_f32` (``csrc/dequant_mm_f32.cu``,
@@ -23,22 +25,24 @@ hand-written CUDA kernel with its plain PyTorch version beside it:
 
 A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
 raises; a CPU tensor takes the plain version.  :func:`dequant_matmul`
-picks the tables and adds the zero points.  The bf16x2 and f32 kernels
-pick their tile by rows and split d_in across blocks when the output tiles
-cannot fill the card; :func:`plan_bf16x2` and :func:`plan_f32` work the
-split out in Python, and the kernels sum the splits in split order.
+picks the tables and adds the zero points.  The three kernels pick their
+tile by rows and split d_in across blocks when the output tiles cannot
+fill the card; :func:`plan_bf16x2`, :func:`plan_i8` and :func:`plan_f32`
+work the split out in Python, and the kernels sum the splits in split
+order (the W8A8 one inside a thread-block cluster, in one launch).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
 
 from tpu_lutvq_torch.core.config import VQConfig
-from tpu_lutvq_torch.core.params import broadcast_codebook
+from tpu_lutvq_torch.core.params import broadcast_codebook, div_scalar
 from tpu_lutvq_torch.kernels import _build
 from tpu_lutvq_torch.kernels.lut_gemv import (
     PackedVQ,
@@ -51,17 +55,20 @@ from tpu_lutvq_torch.kernels.lut_gemv import (
 DEQUANT_MM_LAUNCHES = 0  # bf16x2 tables
 DEQUANT_MM_I8_LAUNCHES = 0
 DEQUANT_MM_F32_LAUNCHES = 0
+FOLD_I8_LAUNCHES = 0  # the W8A8 activation fold (XLA in the JAX package)
 
 TABLES = ("bf16x2", "i8", "f32")
 _KERNEL_D_SUBVEC = 8  # csrc/dequant_mm.cu rebuilds 16-byte (8 × bf16) rows
-_I8_KERNEL_D_SUBVEC = (4, 8, 16)  # csrc/dequant_mm_i8.cu copies 4-, 8- or 16-byte rows
-_I8_KERNEL_STEP = 64  # csrc/dequant_mm_i8.cu kBK: int8 inputs per k-step
-_I8_TILE = 64  # csrc/dequant_mm_i8.cu kBM = kBN: rows and columns per block
-# d_in is split across blocks until the grid holds this many blocks per SM
-# (the kernel's 20 KiB of shared memory and 128 threads fit ~7 on an SM),
-# each split at least _I8_MIN_SPLIT_STEPS k-steps long
-_I8_BLOCKS_PER_SM = 6
-_I8_MIN_SPLIT_STEPS = 4
+_I8_KERNEL_D_SUBVEC = (4, 8, 16)  # csrc/dequant_mm_i8.cu reads 4-, 8- or 16-byte rows
+# csrc/dequant_mm_i8.cu's tiles, chosen by rows, as the bf16x2 ones: (most
+# rows, output columns a block, rows a block, blocks an SM holds)
+_I8_TILES = ((8, 128, 8, 4), (16, 128, 16, 4), (None, 256, 64, 2))
+# inputs a k-step: a shared codebook is staged once, per-subvector ones ride
+# the ring 32 inputs a stage; x_i8 rows are padded to whole 128-input steps
+_I8_STEP_INPUTS = {True: 128, False: 32}
+I8_PAD_INPUTS = 128
+# the splits of an output tile form one thread-block cluster (portable size)
+_I8_MAX_SPLITS = 8
 _KERNEL_MAX_CODEBOOKS = 2
 # csrc/dequant_mm.cu's tiles, chosen by rows: (most rows, output columns a
 # block, rows a block, blocks an SM holds); above 16 rows x goes in as bf16
@@ -135,7 +142,7 @@ class SplitPlan:
                 for s in range(self.n_splits)]
 
 
-def _plan(tiles, rows, d_out, step, steps, sms) -> SplitPlan:
+def _plan(tiles, rows, d_out, step, steps, sms, max_splits=None) -> SplitPlan:
     config = next(i for i, t in enumerate(tiles) if t[0] is None or rows <= t[0])
     _, cols, brows, per_sm = tiles[config]
     n_tiles = -(-d_out // cols) * -(-rows // brows)
@@ -145,7 +152,8 @@ def _plan(tiles, rows, d_out, step, steps, sms) -> SplitPlan:
         # waves of blocks times a block's share of d_in, over at most two
         # waves' worth of splits (each split writes and reads its partials):
         # the fewest splits within 5 % of the least
-        most = min(max(1, steps // _MIN_SPLIT_STEPS), 2 * -(-slots // n_tiles))
+        most = min(max(1, steps // _MIN_SPLIT_STEPS), 2 * -(-slots // n_tiles),
+                   max_splits or steps)
         cost = {n: -(-n_tiles * n // slots) / n for n in range(1, most + 1)}
         n_splits = min(n for n, c in cost.items() if c <= 1.05 * min(cost.values()))
     split_steps = -(-steps // n_splits)
@@ -165,6 +173,22 @@ def plan_bf16x2(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int) ->
 def plan_f32(rows: int, d_in: int, d_out: int, sms: int) -> SplitPlan:
     """``csrc/dequant_mm_f32.cu``'s plan; its k-steps count inputs."""
     return _plan(_F32_TILES, rows, d_out, _F32_STEP, -(-d_in // _F32_STEP), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_i8(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int,
+            d_subvec: int) -> SplitPlan:
+    """``csrc/dequant_mm_i8.cu``'s plan; its k-steps count subvectors (128
+    inputs a step with a shared codebook, 32 with per-subvector ones), and
+    at most ``_I8_MAX_SPLITS`` splits, one thread-block cluster a tile."""
+    step = _I8_STEP_INPUTS[shared] // d_subvec
+    return _plan(_I8_TILES, rows, d_out, step, -(-n_subvec // step), sms, _I8_MAX_SPLITS)
+
+
+def i8_padded_subvec(cfg: VQConfig) -> int:
+    """Subvectors a W8A8 kernel's x_i8 row holds: ``n_subvec`` rounded up to
+    whole ``I8_PAD_INPUTS``-input steps, the rest zeros."""
+    return _round_up(cfg.n_subvec, I8_PAD_INPUTS // cfg.d_subvec)
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,7 +271,7 @@ def quantize_tables_i8(cfg: VQConfig, codebook: torch.Tensor) -> tuple[torch.Ten
     K, d)`` int8 and ``s (M_cb, N, d)`` float32; group ``g = n·M + m`` reads
     ``s[m or 0, n, w]``."""
     t = codebook.float()
-    s = torch.clamp_min(t.abs().amax(dim=2) / 127.0, 1e-12)
+    s = torch.clamp_min(div_scalar(t.abs().amax(dim=2), 127.0), 1e-12)
     q = torch.clamp(torch.round(t / s[:, :, None, :]), -127, 127).to(torch.int8)
     return q, s
 
@@ -264,7 +288,7 @@ def fold_activations_i8(
     Returns ``x_i8 (B, N, M, d)`` int8 and ``xs (B,)`` float32."""
     b = x.shape[0]
     x4 = x.float().reshape(b, 1, cfg.n_subvec, cfg.d_subvec) * s.permute(1, 0, 2)[None]
-    xs = torch.clamp_min(x4.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
+    xs = torch.clamp_min(div_scalar(x4.abs().amax(dim=(1, 2, 3)), 127.0), 1e-12)
     x_i8 = torch.clamp(torch.round(x4 / xs[:, None, None, None]), -127, 127)
     return x_i8.to(torch.int8), xs
 
@@ -286,9 +310,11 @@ def dequant_mm_i8_plain(
     """Plain version of the W8A8 kernel: ``float(Σ x_i8 · w_i8) · xs[b] · s[j]``.
     Every product and partial sum is an integer below 2^53, so the f64
     matmul (the card has no integer one) is exact in any order: the int32
-    sum of the JAX kernel and of ours, cast once."""
+    sum of the JAX kernel and of ours, cast once.  ``x_i8`` is ``(B, N, M,
+    d)`` or, as :func:`fold_i8` writes it, padded with zero subvectors."""
     w = weight_i8(cfg, packed, q).reshape(packed.d_out, -1)
-    acc = x_i8.reshape(x_i8.shape[0], -1).double() @ w.double().T
+    x = x_i8[:, :, : cfg.n_subvec].reshape(x_i8.shape[0], -1)
+    acc = x.double() @ w.double().T
     return _scaled(acc.float() * xs[:, None], packed)
 
 
@@ -296,8 +322,9 @@ def dequant_mm_i8(
     cfg: VQConfig, packed: PackedVQ, x_i8: torch.Tensor, xs: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
     """The W8A8 kernel's wrapper: plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor.  Inputs from :func:`quantize_tables_i8` and
-    :func:`fold_activations_i8`."""
+    kernel for a CUDA tensor.  ``q`` from :func:`quantize_tables_i8` (or
+    :func:`tables_i8`); ``x_i8, xs`` from :func:`fold_i8` (the plain version
+    also takes :func:`fold_activations_i8`'s unpadded ``x_i8``)."""
     if x_i8.device.type == "cpu":
         return dequant_mm_i8_plain(cfg, packed, x_i8, xs, q)
     return _launch_i8(cfg, packed, x_i8, xs, q)
@@ -316,39 +343,86 @@ def _launch_i8(cfg, packed, x_i8, xs, q):
     out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x_i8.device)
     if r == 0:
         return out
-    # subvectors padded with zeros to whole k-steps: aligned 16-byte loads
-    m_step = _I8_KERNEL_STEP // d
-    mp = _round_up(m, m_step)
-    xq = F.pad(x_i8, (0, 0, 0, mp - m)) if mp > m else x_i8
-    xq = xq.contiguous()
-    xs = xs.contiguous()
-    q = q.contiguous()
-    _build.require_cuda_tensor(xq, "x_i8", torch.int8)
+    mp = i8_padded_subvec(cfg)
+    if tuple(x_i8.shape[1:]) != (cfg.n_codebook, mp, d):
+        raise ValueError(f"dequant_mm_i8 kernel takes x_i8 as fold_i8 writes it, "
+                         f"(B, {cfg.n_codebook}, {mp}, {d}); got {tuple(x_i8.shape)}")
+    _build.require_cuda_tensor(x_i8, "x_i8", torch.int8)
     _build.require_cuda_tensor(xs, "xs", torch.float32)
     _build.require_cuda_tensor(q, "q", torch.int8)
     _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
-    steps = mp // m_step
-    tiles = -(-packed.d_out // _I8_TILE) * -(-r // _I8_TILE)
-    sms = torch.cuda.get_device_properties(x_i8.device).multi_processor_count
-    n_splits = max(1, min(-(-_I8_BLOCKS_PER_SM * sms // tiles), steps // _I8_MIN_SPLIT_STEPS))
-    split_steps = -(-steps // n_splits)
-    n_splits = -(-steps // split_steps)
-    ws = None
-    if n_splits > 1:
-        ws = torch.empty((r, packed.d_out), dtype=torch.int32, device=x_i8.device)
+    shared = q.shape[0] == 1
+    plan = plan_i8(r, m, packed.d_out, shared, _sms(x_i8.device), d)
     lib = _build.library()
     err = lib.lutvq_dequant_mm_i8(
-        xq.data_ptr(), xs.data_ptr(), packed.codes_t.data_ptr(), q.data_ptr(),
+        x_i8.data_ptr(), xs.data_ptr(), packed.codes_t.data_ptr(), q.data_ptr(),
         None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        r, m, mp, cfg.n_codebook, cfg.n_cluster, d, int(q.shape[0] == 1),
-        packed.d_out, d_out_pad, split_steps * m_step, n_splits, _build.stream_ptr(x_i8),
+        r, m, mp, cfg.n_codebook, cfg.n_cluster, d, int(shared), plan.config,
+        packed.d_out, d_out_pad, plan.split_steps * plan.step, plan.n_splits,
+        _build.stream_ptr(x_i8),
     )
     _build.check(lib, err, "dequant_mm_i8")
     DEQUANT_MM_I8_LAUNCHES += 1
     return out
+
+
+def fold_i8(cfg: VQConfig, x: torch.Tensor, s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold kernel's wrapper (``csrc/dequant_mm_i8.cu::fold_i8``, counter
+    ``FOLD_I8_LAUNCHES``): :func:`fold_activations_i8`'s values, ``x_i8``
+    written ``(B, N, Mp, d)`` with zero subvectors up to
+    :func:`i8_padded_subvec` (what the W8A8 kernel reads, so it needs no
+    pad pass), and ``xs``.  One launch for a CUDA tensor; the plain version
+    padded for a CPU tensor."""
+    if x.device.type == "cpu":
+        x_i8, xs = fold_activations_i8(cfg, x, s)
+        return F.pad(x_i8, (0, 0, 0, i8_padded_subvec(cfg) - cfg.n_subvec)), xs
+    return _launch_fold_i8(cfg, x, s)
+
+
+def _launch_fold_i8(cfg, x, s):
+    global FOLD_I8_LAUNCHES
+    mp = i8_padded_subvec(cfg)
+    if cfg.d_subvec % 4:
+        raise ValueError(f"fold_i8 kernel takes d_subvec % 4 == 0; got {cfg}")
+    b = x.shape[0]
+    xf = x.float().contiguous()
+    s = s.contiguous()
+    _build.require_cuda_tensor(xf, "x", torch.float32)
+    _build.require_cuda_tensor(s, "s", torch.float32)
+    x_i8 = torch.empty((b, cfg.n_codebook, mp, cfg.d_subvec), dtype=torch.int8, device=x.device)
+    xs = torch.empty((b,), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    err = lib.lutvq_fold_i8(xf.data_ptr(), s.data_ptr(), x_i8.data_ptr(), xs.data_ptr(), b,
+                            cfg.n_subvec, mp, cfg.n_codebook, cfg.d_subvec, int(s.shape[0] == 1),
+                            _build.stream_ptr(x))
+    _build.check(lib, err, "fold_i8")
+    FOLD_I8_LAUNCHES += 1
+    return x_i8, xs
+
+
+# (id of a codebook tensor) → (weak reference, its _version, q, s)
+_TABLES_I8: dict = {}
+
+
+def tables_i8(cfg: VQConfig, codebook: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_tables_i8` once per codebook tensor: the result is
+    kept, weakly keyed on the tensor, until the tensor is edited in place
+    (its ``_version`` moves) or freed.  ``local_view`` keeps the pack's
+    codebook object, so every shard view of a layer shares one entry.  The
+    cache holds ``q`` and ``s``: N·K·d bytes (4 KiB at 2x8) a projection
+    with a shared codebook, M·N·K·d (2 MiB at 7B width) with per-subvector
+    ones.  The values are those of a fresh call (the JAX package quantizes
+    per call)."""
+    key = id(codebook)
+    hit = _TABLES_I8.get(key)
+    if hit is not None and hit[0]() is codebook and hit[1] == codebook._version:
+        return hit[2], hit[3]
+    q, s = quantize_tables_i8(cfg, codebook)
+    ref = weakref.ref(codebook, lambda _, key=key: _TABLES_I8.pop(key, None))
+    _TABLES_I8[key] = (ref, codebook._version, q, s)
+    return q, s
 
 
 # ---- f32 tables (the oracle) ---------------------------------------------------
@@ -415,7 +489,8 @@ def dequant_matmul(
     ``tables`` is ``"bf16x2"`` (serving), ``"i8"`` (W8A8) or ``"f32"``
     (oracle); odd ``d_subvec``, and ``"i8"`` with ``d_subvec % 4``, take the
     f32 tables, as in the JAX package (``dequant_mm.py:575-576``).  The
-    tables derive from the packed codebook at call time.  ``plain=True``
+    tables derive from the packed codebook (the W8A8 ones quantized once
+    per codebook tensor, :func:`tables_i8`).  ``plain=True``
     runs the plain versions on any device, for comparison with the kernels."""
     if tables not in TABLES:
         raise ValueError(f"unknown dequant_matmul tables {tables!r} ({'|'.join(TABLES)})")
@@ -432,9 +507,11 @@ def dequant_matmul(
     if cfg.d_subvec % 2 or (tables == "i8" and cfg.d_subvec % 4):
         tables = "f32"
     if tables == "i8":
-        q, s = quantize_tables_i8(cfg, packed.codebook)
-        x_i8, xs = fold_activations_i8(cfg, x, s)
-        y = (dequant_mm_i8_plain if plain else dequant_mm_i8)(cfg, packed, x_i8, xs, q)
+        q, s = tables_i8(cfg, packed.codebook)
+        if plain:
+            y = dequant_mm_i8_plain(cfg, packed, *fold_activations_i8(cfg, x, s), q)
+        else:  # two launches on the card: the fold and the W8A8 kernel
+            y = dequant_mm_i8(cfg, packed, *fold_i8(cfg, x, s), q)
     elif tables == "f32":
         y = (dequant_mm_f32_plain if plain else dequant_mm_f32)(cfg, packed, x)
     else:

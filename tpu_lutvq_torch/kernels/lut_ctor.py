@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpu_lutvq_torch.core.config import VQConfig
-from tpu_lutvq_torch.core.params import broadcast_codebook
+from tpu_lutvq_torch.core.params import broadcast_codebook, div_scalar
 
 LANE = 128  # table width the JAX kernels pad to; kept so both packages agree
 
@@ -46,7 +46,7 @@ def build_lut(
 
 def _quantize_lut(lut: torch.Tensor, axis, qmax: float, dtype: torch.dtype):
     absmax = lut.abs().amax(dim=axis, keepdim=True)
-    scale = absmax.clamp_min(1e-30) / qmax
+    scale = div_scalar(absmax.clamp_min(1e-30), qmax)
     # a division, as the JAX package takes it (a reciprocal multiply can
     # round differently); torch.round rounds half to even like jnp.round
     lut_q = torch.round(lut / scale).clamp(-qmax, qmax).to(dtype)

@@ -4,9 +4,12 @@ Semantics: ``y[b, j] = s[j] · Σ_g lut[b, g, codes_t[g, j]]``, in five
 flavours of table, each a hand-written CUDA kernel for 1 to
 ``MAX_LUT_BATCH`` tokens per launch (larger batches are chunked):
 
-- ``pair``/``bpair`` (B=1 / B≥2): bf16 entries, f32 sum —
-  ``csrc/lut_gemv.cu``, wrapper :func:`lut_lookup`, counter
-  ``LUT_GEMV_LAUNCHES``;
+- ``pair``/``bpair`` (B=1 / B≥2): bf16 entries, f32 sum, wrapper
+  :func:`lut_lookup` — ``pair`` in ``csrc/lut_gemv.cu`` (counter
+  ``LUT_GEMV_LAUNCHES``), ``bpair`` in ``csrc/lut_bpair.cu``, which rounds
+  the f32 tables to bf16 as it stages them and splits the groups over a
+  thread-block cluster as :func:`plan_bpair` says (counter
+  ``LUT_GEMV_BPAIR_LAUNCHES``);
 - ``pairf`` (B=1): ``pair`` with the f32 table rounded to bf16 inside the
   kernel — the same source, wrapper :func:`lut_lookup_pairf`, counter
   ``LUT_GEMV_PAIRF_LAUNCHES``;
@@ -54,7 +57,8 @@ from tpu_lutvq_torch.kernels.lut_ctor import (
 DEFAULT_BLOCK_J = 1024  # the JAX tiling's output block; sets the padding rule
 MAX_LUT_BATCH = 8  # widest token tile of the CUDA kernel
 # kernel launches since the last reset (see module doc)
-LUT_GEMV_LAUNCHES = 0  # bf16 tables (pair, bpair)
+LUT_GEMV_LAUNCHES = 0  # bf16 tables, one token (pair)
+LUT_GEMV_BPAIR_LAUNCHES = 0  # bf16 tables, 2-8 tokens (bpair)
 LUT_GEMV_PAIRF_LAUNCHES = 0  # f32 tables rounded to bf16 in the kernel
 LUT_GEMV_F32_LAUNCHES = 0
 LUT_GEMV_I8_LAUNCHES = 0
@@ -64,6 +68,24 @@ LUT_GEMV_NIBBLES_BPAIR_LAUNCHES = 0  # nibble codes, bf16 tables (J2)
 
 _TOKEN_TILES = (1, 2, 4, 8)
 _TILE_COLS = 512  # output columns per CUDA block (csrc/lut_gemv.cu kTileCols)
+# csrc/lut_bpair.cu (B): columns × row groups a block spans (256 threads of
+# 4 columns), column tiles a block may take, blocks a cluster may hold
+# (above 8 where the card allows it), table entries (groups × Kp × a
+# block's tokens) a round stages, groups a thread looks up a round
+BPAIR_SPAN = 1024
+BPAIR_TILE_COLS = (1024, 512, 256, 128)
+BPAIR_MAX_SPLITS = 16
+_BPAIR_STAGE_ENTRIES = 8192
+_BPAIR_MAX_PER_THREAD = 8
+# plan_bpair's cost model, in clocks of one SM: a round writes its entries
+# as bf16 (2 B each) and looks up its groups' entries for every column, both
+# through shared memory at 128 B/clk, ~3.5 times slower as measured on the
+# H100 (random codes over K = 256 rows meet bank conflicts), and has a
+# barrier; two blocks an SM share it; the tables cross the L2 (~2560 B/clk
+# in all) once per column tile
+_BPAIR_SMEM_BPC = 128 / 3.5
+_BPAIR_ROUND_CLK = 200
+_BPAIR_L2_BPC = 2560
 _SCAN_TILE_COLS = 1024  # csrc/lut_scan.cu kTileCols
 _SCAN_STAGE_BYTES = 128 * 1024  # staged table slice per block (f32 G=16 K=256 B=8)
 _SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory, 1 KiB of it per block reserved
@@ -320,7 +342,11 @@ def _prepare(lut, codes_t, scales, d_out, tile_cols, name, per_row=1):
 
 
 def _launch(lut, codes_t, scales, d_out):
+    """One token's table: A (``csrc/lut_gemv.cu``); 2-8 tokens': B
+    (``csrc/lut_bpair.cu``)."""
     global LUT_GEMV_LAUNCHES
+    if lut.shape[0] > 1:
+        return _launch_bpair(lut, codes_t, scales, d_out)
     # bf16: the rounding point of the JAX pair packers
     out = _run_lut_gemv(lut.to(torch.bfloat16), codes_t, scales, d_out)
     LUT_GEMV_LAUNCHES += 1
@@ -338,8 +364,8 @@ def _launch_pairf(lut, codes_t, scales, d_out):
 
 
 def _run_lut_gemv(lut, codes_t, scales, d_out):
-    """``csrc/lut_gemv.cu`` over a bf16 table, or an f32 one (``pairf``)
-    that the kernel rounds to bf16 as it stages it."""
+    """``csrc/lut_gemv.cu`` over one token's bf16 table, or an f32 one
+    (``pairf``) that the kernel rounds to bf16 as it stages it."""
     b, g, kp = lut.shape
     d_out_pad = codes_t.shape[1]
     tab, bp, _, _, g_per_split, n_splits = _prepare(
@@ -356,6 +382,127 @@ def _run_lut_gemv(lut, codes_t, scales, d_out):
     )
     _build.check(lib, err, "lut_gemv")
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BpairPlan:
+    """How ``csrc/lut_bpair.cu`` covers ``groups`` groups × the padded
+    width for B tokens: ``grid`` = (column tiles of ``tile_cols``,
+    ``n_splits``, token blocks of ``token_block``), the splits of a tile one
+    cluster; split ``q`` takes ``slice_groups`` groups from ``q *
+    slice_groups`` in rounds of ``stage_groups``, a thread looking up
+    ``stage_groups / row_groups`` of them a round."""
+
+    tile_cols: int
+    n_splits: int
+    slice_groups: int
+    stage_groups: int
+    token_block: int
+    grid: tuple
+
+    @property
+    def row_groups(self) -> int:
+        """Thread groups of a block that interleave its split's groups."""
+        return BPAIR_SPAN // self.tile_cols
+
+    def split_groups(self, groups: int) -> list:
+        return [range(min(groups, q * self.slice_groups),
+                      min(groups, (q + 1) * self.slice_groups)) for q in range(self.n_splits)]
+
+    def rounds(self, split: range) -> list:
+        return [range(s, min(split.stop, s + self.stage_groups))
+                for s in range(split.start, split.stop, self.stage_groups)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bpair(groups: int, d_out_pad: int, tokens: int, kp: int, sms: int,
+               fits=None) -> BpairPlan:
+    """B's split of ``groups`` groups (tables of ``kp`` entries) over
+    ``d_out_pad`` columns for ``tokens`` (2-8) tokens on a card of ``sms``
+    SMs.  Tokens go in blocks of 2 (two tokens) or 4, along the grid's
+    third axis, so each block stages its tokens' tables only; the (column
+    tile, splits ≤ BPAIR_MAX_SPLITS) is the one that minimises the larger
+    of waves × a block's rounds (each rounding its tables into shared
+    memory and looking them up) and the tables' traffic through the L2
+    (once per column tile), then the former.  ``fits(token_block,
+    tile_cols, n_splits, stage_groups)`` is how many such clusters the card
+    holds at once (the wrapper asks the card; by default two blocks an SM,
+    ``2 * sms // n_splits``): a cluster that does not fit waits for a second
+    wave.  No split is left empty.  Pure."""
+    tb = 2 if tokens <= 2 else 4
+    zs = -(-tokens // tb)
+    best = None
+    for tc in BPAIR_TILE_COLS:
+        row_groups = BPAIR_SPAN // tc
+        per_thread = min(_BPAIR_MAX_PER_THREAD, _BPAIR_STAGE_ENTRIES // (row_groups * kp * tb))
+        if per_thread < 1:
+            continue
+        stage = row_groups * per_thread
+        tiles = -(-d_out_pad // tc)
+        l2 = tiles * groups * kp * tokens * 4 / _BPAIR_L2_BPC
+        for ns in range(1, BPAIR_MAX_SPLITS + 1):
+            slice_groups = -(-groups // ns)
+            if slice_groups * (ns - 1) >= groups:
+                continue
+            slots = 2 * sms // ns if fits is None else fits(tb, tc, ns, stage)
+            if slots < 1:
+                continue
+            rnd = min(stage, slice_groups)
+            per_round = (rnd * kp * tb * 2 + rnd * tc * tb * 2) / _BPAIR_SMEM_BPC
+            # the rounds, then the row-group sums and the tile's share read
+            # across the cluster
+            block = -(-slice_groups // stage) * (per_round + _BPAIR_ROUND_CLK) + (
+                (BPAIR_SPAN + tc) * tb * 4 / _BPAIR_SMEM_BPC)
+            share = max(1.0, min(tiles * zs, slots) * ns / sms)  # blocks an SM runs at once
+            blocks = -(-tiles * zs // slots) * block * share
+            cost = (max(blocks, l2), blocks)  # where the L2 bounds, the shorter blocks
+            if best is None or cost < best[0]:
+                best = (cost, BpairPlan(tc, ns, slice_groups, stage, tb, (tiles, ns, zs)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _bpair_cluster_fits(token_block: int, tile_cols: int, n_splits: int,
+                        stage_groups: int) -> int:
+    """Clusters of a B plan the card holds at once (the CUDA occupancy
+    query); 0 when one cannot launch."""
+    n = _build.library().lutvq_lut_bpair_clusters(token_block, tile_cols, n_splits, stage_groups)
+    return max(n, 0)
+
+
+def _launch_bpair(lut, codes_t, scales, d_out):
+    """B over build_lut's (B, G, Kp) f32 tables as they are: the kernel
+    rounds the entries to bf16 as it stages them (a bf16 table is widened
+    first, exactly)."""
+    global LUT_GEMV_BPAIR_LAUNCHES
+    b, g, kp = lut.shape
+    g_pad, d_out_pad = codes_t.shape
+    if not 2 <= b <= MAX_LUT_BATCH or kp not in (LANE, 2 * LANE):
+        raise ValueError(f"bpair kernel takes 2-{MAX_LUT_BATCH} tokens' tables of Kp in "
+                         f"{(LANE, 2 * LANE)}, got {tuple(lut.shape)}")
+    if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
+        raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
+    tab = lut.float().contiguous()
+    for t, name, dtype in ((tab, "lut", torch.float32), (codes_t, "codes_t", torch.uint8)):
+        _build.require_cuda_tensor(t, name, dtype)
+    if scales is not None:
+        _build.require_cuda_tensor(scales, "scales", torch.float32)
+    plan = plan_bpair(g, d_out_pad, b, kp, _sms(lut.device), _bpair_cluster_fits)
+    out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
+    lib = _build.library()
+    err = lib.lutvq_lut_bpair(
+        tab.data_ptr(), codes_t.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), b, plan.token_block, g, kp, d_out, d_out_pad, plan.tile_cols,
+        plan.n_splits, plan.slice_groups, plan.stage_groups, _build.stream_ptr(lut),
+    )
+    _build.check(lib, err, "lut_bpair")
+    LUT_GEMV_BPAIR_LAUNCHES += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def lut_lookup_int_plain(
