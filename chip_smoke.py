@@ -8,7 +8,7 @@ Phases, one result line each; any failure raises and exits non-zero:
   1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
      parallel, sm_90a), link and load; one line per kernel with registers
      and spills, and the redesigned sources' kernels (flash decode's three,
-     J2's, G's and its fold's, B's) must not spill;
+     flash prefill's, J1's and J2's, G's and its fold's, B's) must not spill;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      inputs, error, CUDA-event median times and profiler device times, at
      the shapes its path gives it: the projections at the Llama-2-7B shapes
@@ -18,7 +18,9 @@ Phases, one result line each; any failure raises and exits non-zero:
      decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
      layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
      flash prefill at the chunked-admission and ragged-wave shapes, bf16 KV
-     once; both at head_dim 64 once; the table lookups at each scan that
+     once, and at its other splits (blocks of 64, a 4096-row window); both
+     at head_dim 64 once; ``quantize_kv`` of 7B-width K/V rows on the card
+     equal to the CPU's bit for bit; the table lookups at each scan that
      phase 5 gives them (8 queries over a million codes: bf16 tables at
      PQ16 and at RQ's 4 codebooks, f32 at PQ16 and at the refine bounds' 8
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
@@ -29,8 +31,9 @@ Phases, one result line each; any failure raises and exits non-zero:
      d_subvec 3, its general path), ``pairf`` at one token; the three dequant
      kernels, B, the attention kernels and the nibble lookups give bit-equal
      outputs from two calls; the T-MAC W4 nibble lookups (J1 at one token's f32
-     table, J2 at 2, 8 and 16 tokens' bf16 tables, with J2's shared-memory
-     lookup floor) at the 7B projection shapes and 4096 -> 28672.  Wrong-rounding
+     table, one kernel a call by the profiler, J2 at 2, 8 and 16 tokens' bf16
+     tables, each with its shared-memory lookup floor) at the 7B projection
+     shapes and 4096 -> 28672.  Wrong-rounding
      controls must fail each kernel's tolerance (the int8 and int16 lookups
      and the W8A8 matmul and fold must equal their plain versions, ``pairf``
      the ``pair`` kernel; truncating instead of rounding must not).  Each row
@@ -90,12 +93,13 @@ repository beside it, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile   # phases 0-1, then the profile below
 
-profiles batcher runs (iv) (``quality="fast"``), (ii) (paged) and (i)
-instead: device busy share, launches and device time by kernel
-(torch.profiler), flash decode's share of it (and in run (iv) the W8A8
-kernel's and its fold's), a B=8 decode step, flash against einsum
-attention, and phase 3 (a)'s B=4 decode tok/s.  Copied into an earlier
-tree's checkout it profiles that tree the same way.
+profiles batcher runs (iv) (``quality="fast"``), (iii) (flash, chunked
+admission), (ii) (paged) and (i) instead: device busy share, launches and
+device time by kernel (torch.profiler), flash decode's share of it (in run
+(iii) flash prefill's, in run (iv) the W8A8 kernel's and its fold's), a
+B=8 decode step, flash against einsum attention, and phase 3 (a)'s B=4
+decode tok/s.  Copied into an earlier tree's checkout it profiles that tree
+the same way.
 
     python3 chip_smoke.py --guard     # phases 0-1, then 2-4, 6 and 7 guarded
 
@@ -151,19 +155,23 @@ TABLE_SCANS = {
 # by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-# J2's and B's lookup floor: their shared-memory bytes at 128 B a clock an
-# SM, at the card's maximum SM clock (nvidia-smi clocks.max.sm, read in
-# phase 0)
+# J1's, J2's and B's lookup floor: their shared-memory bytes at 128 B a
+# clock an SM, at the card's maximum SM clock (nvidia-smi clocks.max.sm, read
+# in phase 0)
 SMEM_BYTES_CLK = 128
 SM_CLOCK_HZ = None
 # kernels of the sources redesigned for Hopper that phase 1 holds to zero
-# spills: csrc/flash_decode.cu (D, F), csrc/lut_nibbles.cu (J2),
-# csrc/dequant_mm_i8.cu (G and the W8A8 fold) and csrc/lut_bpair.cu (B)
+# spills: csrc/flash_decode.cu (D, F), csrc/lut_nibbles.cu (J1, J2),
+# csrc/dequant_mm_i8.cu (G and the W8A8 fold), csrc/lut_bpair.cu (B) and
+# csrc/flash_prefill.cu (E)
 NO_SPILL_KERNELS = ("decode_scores", "decode_values", "decode_combine", "lut_nibbles_bf16",
-                    "dequant_mm_i8", "fold_i8", "lut_bpair")
-# flash decode's kernels as the profiler names them (this tree's and the
-# single-kernel design before it), for --profile's share of device time
+                    "lut_nibbles_f32", "dequant_mm_i8", "fold_i8", "lut_bpair",
+                    "flash_prefill_cluster")
+# flash decode's and flash prefill's kernels as the profiler names them
+# (this tree's and the designs before it), for --profile's shares of device
+# time
 DECODE_KERNELS = re.compile(r"flash_decode<|decode_(scores|values|combine)")
+PREFILL_KERNELS = re.compile(r"flash_prefill")
 # max|logits - plain logits| / max|plain logits|, prefill and first step.
 # The random 7B model turns last-bit differences into int8-KV and bf16
 # rounding flips: the plain versions with reordered f32 sums read 0.87-2.0e-2
@@ -256,6 +264,14 @@ PREFILL_CASES = (  # (H, H_kv, T, offsets, KV dtype, Dh): chunked admission, rag
     (64, 8, 256, (0,), "int8", 128), (64, 8, 256, (256,), "int8", 128),
     (64, 8, 256, (512,), "int8", 128), (64, 8, 64, RAGGED, "int8", 128),
     (32, 32, 256, (512,), "bf16", 128), (32, 8, 64, RAGGED, "int8", 64),
+)
+# E's other splits (the rows above take one KV block of 256 a rank):
+# (H, H_kv, T, offsets, KV dtype, Dh, cache rows, block_s).  Blocks of 64
+# put 4 KV blocks in a rank's 256 rows; a 4096-row window puts 2 blocks of
+# 256 in a rank, past the 256 score columns it holds (the recompute).
+PREFILL_SPANS = (
+    (32, 32, 256, (512,), "int8", 128, S_MAX, 64),
+    (32, 8, 64, (3000, 100), "int8", 128, 2 * S_MAX, 256),
 )
 SUMMARY_AT = {
     "lut_gemv": "4096x4096 B=1", "lut_gemv_bpair": "4096x4096 B=8",
@@ -973,12 +989,20 @@ def phase_nibbles(device):
                 xb = x.to(torch.bfloat16)
                 n_bytes = nbytes(packed.codes_t, packed.scales, got) + (
                     b * cfg.n_groups * 16 * (4 if f32 else 2))
-                # J2's floor: two entries of each launch's token tile (bf16)
-                # from shared memory per code byte and column
+                # the lookup floor: two entries of each launch's token tile
+                # (bf16, J2; one f32 token, J1) from shared memory per code
+                # byte and column
                 tiles = [min(8, b - i) for i in range(0, b, 8)]
-                smem = sum(packed.codes_t.shape[0] * packed.codes_t.shape[1] * 2 * 2 *
-                           next(t for t in (2, 4, 8) if t >= n) for n in tiles if n > 1)
-                floor = None if f32 else lookup_floor_ms(smem)
+                smem = sum(packed.codes_t.shape[0] * packed.codes_t.shape[1] * 2 *
+                           (4 if n == 1 else 2 * next(t for t in (2, 4, 8) if t >= n))
+                           for n in tiles)
+                floor = lookup_floor_ms(smem)
+                if f32:  # one launch a call: no copy of the table, no reduce kernel
+                    launched = launched_kernels(lambda: lg.lut_gemv_packed(cfg, packed, lut))
+                    print(f"[kernels] lut_gemv_nibbles tmac {d_in}x{d_out} B=1: one call launches "
+                          + ", ".join(f"{k[:60]} x{n}" for k, n in launched.items()))
+                    check(list(launched.values()) == [1] and "lut_nibbles_f32" in next(
+                        iter(launched)), f"J1 tmac {d_in}x{d_out}: one call launched {launched}")
                 rows[name].append(with_bound(dict(
                     shape=f"tmac {d_in}x{d_out} B={b}", rel=rel_err(got, want),
                     abs=float((got - want).abs().max()), control=rel_err(control, want),
@@ -1097,8 +1121,21 @@ def phase_attention(device):
     """The flash kernels against their plain versions, with controls."""
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
+    from tpu_lutvq_torch.models.kv_cache import quantize_kv
+
     fd, fp = attention_modules()
     gen = torch.Generator(device).manual_seed(4321)
+    # quantize_kv's IEEE division on the card: a batch of 7B-width K/V rows,
+    # values and scales bit for bit against the same call on the CPU (a
+    # generator of its own: the kernel rows below keep their inputs)
+    x = torch.randn((8, 256, 32, 128), generator=torch.Generator(device).manual_seed(4322),
+                    device=device) * 3
+    (q_gpu, s_gpu), (q_cpu, s_cpu) = quantize_kv(x), quantize_kv(x.cpu())
+    same = torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    print(f"[kernels] quantize_kv (8, 256, 32, 128) on the card equals the CPU's bit for bit: "
+          f"{same}")
+    check(same, "quantize_kv on the card differs from the CPU")
+    del x, q_gpu, s_gpu
     rows = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
     for b, h, hkv, window, pos, kv_dtype, dh in DECODE_CASES:
         pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
@@ -1127,24 +1164,28 @@ def phase_attention(device):
             f"{shape} BS={PAGE}", lambda: paged(False), lambda: paged(True), dh, library,
             attention_work(q, cache, n_rows, n_rows, q, extra=tables)))
         del k, v
-    for h, hkv, t, offsets, kv_dtype, dh in PREFILL_CASES:
+    spans = [c + (S_MAX, fp.DEFAULT_BLOCK_S) for c in PREFILL_CASES] + list(PREFILL_SPANS)
+    for h, hkv, t, offsets, kv_dtype, dh, s_max, block_s in spans:
         b = len(offsets)
         off = torch.tensor(offsets, dtype=torch.int32, device=device)
-        cache = kv_cache(gen, (b, hkv, S_MAX), dh, kv_dtype, device)
+        cache = kv_cache(gen, (b, hkv, s_max), dh, kv_dtype, device)
         poison_past(cache, off + t - 1)
         q = torch.randn((b, t, h, dh), generator=gen, device=device)
-        window = bucket_window(max(offsets) + t, S_MAX)
+        window = bucket_window(max(offsets) + t, s_max)
 
-        def pre(plain, cache=cache, q=q, off=off, window=window):
-            return fp.flash_prefill_attention(q, *cache, off, window=window, plain=plain)
+        def pre(plain, cache=cache, q=q, off=off, window=window, block_s=block_s):
+            return fp.flash_prefill_attention(q, *cache, off, window=window, block_s=block_s,
+                                              plain=plain)
 
         k, v = dequant_kv(cache, window, h // hkv)
         causal = off[:, None] + torch.arange(t, device=device)[None, :]  # (B, T) last row
         mask = (torch.arange(window, device=device)[None, None, :] <= causal[..., None])[:, None]
         library = sdpa(q.transpose(1, 2).to(torch.bfloat16), k, v, mask)
         attended = t * off.long() + t * (t + 1) // 2  # Σ_t (off + t + 1) per sequence
+        extra = "" if (s_max, block_s) == (S_MAX, fp.DEFAULT_BLOCK_S) else (
+            f" S={s_max} BS={block_s}")
         rows["flash_prefill"].append(attention_row(
-            f"B={b} H={h}/{hkv} T={t} off={offsets} {kv_dtype} Dh={dh}",
+            f"B={b} H={h}/{hkv} T={t} off={offsets} {kv_dtype} Dh={dh}{extra}",
             lambda: pre(False), lambda: pre(True), dh, library,
             attention_work(q, cache, off.long() + t, attended, q)))
         del k, v
@@ -1554,10 +1595,11 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
 
 def phase_profile(device, cfg, weights):
     """``--profile``: where the time of batcher runs (iv) (phase 6,
-    ``quality="fast"``), (i) and (ii) (paged) goes.  Each run once
-    unprofiled and once under torch.profiler (device busy share, kernel
-    launches, device time by kernel, flash decode's share of it, and in run
-    (iv) the W8A8 kernel's and its fold's), then a B=8 decode step from run
+    ``quality="fast"``), (iii) (flash, chunked admission), (i) and (ii)
+    (paged) goes.  Each run once unprofiled and once under torch.profiler
+    (device busy share, kernel launches, device time by kernel, flash
+    decode's share of it, in run (iii) flash prefill's (E) and in run (iv)
+    the W8A8 kernel's and its fold's), then a B=8 decode step from run
     (i)'s caches under each attention path (host clock, 5 steps each, flash
     and einsum alternated), then phase 3 (a)'s decode tok/s (three runs).
     It runs on an earlier tree too (copied into its checkout), whose kernels
@@ -1568,12 +1610,16 @@ def phase_profile(device, cfg, weights):
     from tpu_lutvq_torch.runtime import generate
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
-    prompts, _, ids = batcher_prompts(cfg)
-    for run, kw in (("iv", dict(quality="fast")), ("ii", PAGED), ("i", {})):
+    prompts, long_prompts, ids = batcher_prompts(cfg)
+    for run, ps, run_kw, kw in (
+            ("iv", prompts, None, dict(quality="fast")),
+            ("iii", long_prompts, dict(horizon=4, pipeline=True),
+             dict(attn="flash", prefill_chunk=PREFILL_CHUNK)),
+            ("ii", prompts, None, PAGED), ("i", prompts, None, {})):
         serve(cfg, weights, prompts[:N_SLOTS], **kw)  # warm-up: lazy inits, allocator pools
-        secs = serve(cfg, weights, prompts, **kw)[1]
+        secs = serve(cfg, weights, ps, run_kw, **kw)[1]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, prof_secs, launches, b = serve(cfg, weights, prompts, **kw)
+            _, prof_secs, launches, b = serve(cfg, weights, ps, run_kw, **kw)
         on_device = [e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in on_device) / 1e6
@@ -1591,6 +1637,12 @@ def phase_profile(device, cfg, weights):
         print(f"[profile] run ({run}): flash decode {ms:.1f} ms, {100 * ms / 1e3 / busy:.1f} % of "
               f"device time, {sum(e.count for e in decode)} kernel launches over "
               f"{len(decode)} kernels")
+        if run == "iii":
+            found = [e for e in on_device if PREFILL_KERNELS.search(e.key)]
+            ms = sum(e.self_device_time_total for e in found) / 1e3
+            print(f"[profile] run (iii): flash prefill (E) {ms:.1f} ms, "
+                  f"{100 * ms / 1e3 / busy:.1f} % of device time, "
+                  f"{sum(e.count for e in found)} launches over {len(found)} kernels")
         if run == "iv":
             for label, pattern in (("G", "dequant_mm_i8"), ("the fold kernel", "fold_i8")):
                 found = [e for e in on_device if pattern in e.key]
@@ -2199,7 +2251,7 @@ KERNELS = {
         replaces="tpu_lutvq/kernels/lut_gemv.py:309",
     ),
     "lut_gemv_nibbles": dict(
-        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_nibbles.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:628",
     ),
     "lut_gemv_nibbles_bpair": dict(

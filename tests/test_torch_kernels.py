@@ -157,6 +157,24 @@ def test_quantize_kv_bit_exact():
     assert np.array_equal(ts.numpy(), np.asarray(js))
 
 
+def test_quantize_kv_divides_through_div_scalar(monkeypatch):
+    """The scale is ``absmax / 127`` as IEEE division on every device: a
+    Python-number divisor would become a multiply by the reciprocal on a
+    CUDA tensor, which the CPU result above cannot show."""
+    calls = []
+
+    def recording(t, divisor):
+        calls.append(divisor)
+        return tcore.params.div_scalar(t, divisor)
+
+    monkeypatch.setattr(tkv, "div_scalar", recording)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 5, 16)).astype(np.float32))
+    q, s = tkv.quantize_kv(x)
+    assert calls == [127.0]
+    assert torch.equal(s, x.abs().amax(-1) / torch.tensor(127.0))
+    assert q.dtype == torch.int8 and q.shape == x.shape
+
+
 # ---- build_lut / lut_gemv ---------------------------------------------------
 
 

@@ -367,3 +367,70 @@ def test_nibble_bf16_launcher_rejects_cpu_tensors():
         tlut._launch_nibbles_bf16(lut, pk.codes_t, pk.scales, pk.d_out)
     with pytest.raises(ValueError, match="tokens"):
         tlut._launch_nibbles_bf16(lut[:1], pk.codes_t, pk.scales, pk.d_out)
+
+
+# ---- J1's cluster split (one token's f32 tables) ----------------------------------
+
+
+@pytest.mark.parametrize("rows,width", TMAC_PLAN_SHAPES)
+def test_nibble_f32_plan_covers_every_code_row_once(rows, width):
+    """J1's plan (f32 entries, one token): each column tile's splits cover
+    the code rows in order, none empty, each split's rounds within the
+    stage budget at 128 B a code row; and where the card holds two blocks
+    an SM the 7B shapes take one wave of clusters."""
+    def fits(bp, tc, ns, stage_rows):
+        return 2 * H100_SMS // ns
+
+    for f in (None, fits):
+        plan = tlut.plan_nibbles_f32(rows, width, H100_SMS, f)
+        assert plan.tile_cols in tlut.NIBBLE_TILE_COLS
+        assert 1 <= plan.n_splits <= tlut.NIBBLE_MAX_SPLITS
+        tiles, splits = plan.grid
+        assert tiles * plan.tile_cols >= width > (tiles - 1) * plan.tile_cols
+        assert [r for split in plan.split_rows(rows) for r in split] == list(range(rows))
+        for split in plan.split_rows(rows):
+            assert len(split) > 0
+            assert [r for rnd in plan.rounds(split) for r in rnd] == list(split)
+        assert plan.stage_rows * 2 * tlut.NIBBLE_K * 4 <= 128 * 1024
+        slots = H100_SMS // splits if f is None else f(1, plan.tile_cols, splits, plan.stage_rows)
+        if width <= 11264:
+            assert tiles <= slots  # no second wave of clusters
+    # the f32 rows are twice a bf16 pair's bytes: half as many a round
+    assert tlut.plan_nibbles_f32(8192, 4096, 8).stage_rows == 1024
+    assert tlut.plan_nibbles(8192, 4096, 2, 8).stage_rows == 1024
+    assert tlut.plan_nibbles_f32(rows, width, H100_SMS) is tlut.plan_nibbles_f32(rows, width,
+                                                                                H100_SMS)
+
+
+@pytest.mark.parametrize("bits,width", [(2, 128), (3, 384), (4, 256)])
+def test_nibble_f32_cluster_reduce_matches_jax(bits, width):
+    """J1's order (each split's f32 sum of its code rows' two entries, the
+    splits in rank order, then the scales) over one token's f32 tables,
+    against JAX's nibbles kernel in interpret mode; a small SM count splits
+    the rows over the cluster."""
+    jcfg, tcfg, jp, tp = tmac_params(128, width, bits=bits, seed=70 + bits)
+    jpk = jlut.pack_params(jcfg, jp, block_j=128, nibble_pack=True)
+    tpk = tlut.pack_params(tcfg, tp, block_j=128, nibble_pack=True)
+    lut = np.random.default_rng(71).standard_normal((1, jcfg.n_groups, 128)).astype(np.float32)
+    want = np.asarray(jlut._lut_gemv_packed(jcfg, jpk, jnp.asarray(lut), block_j=128,
+                                            interpret=True, variant="nibbles"))
+    rows = -(-jcfg.n_groups // 2)
+    plan = tlut.plan_nibbles_f32(rows, tpk.codes_t.shape[1], 16)
+    assert plan.n_splits > 1
+    got = cluster_reduce(torch.from_numpy(lut)[..., :16], tpk, plan)
+    assert got.shape == want.shape == (1, width)
+    assert rel_err(got.numpy(), want) <= F32_TOL
+    assert rel_err(tlut.lut_gemv_packed(tcfg, tpk, torch.from_numpy(lut)).numpy(), want) <= F32_TOL
+
+
+def test_nibble_f32_launcher_rejects_cpu_tensors():
+    _, tcfg, _, tp = tmac_params(64, 128, seed=6)
+    pk = tlut.pack_params(tcfg, tp, nibble_pack=True)
+    lut = torch.zeros((1, tcfg.n_groups, 128), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlut._launch_nibbles_f32(lut, pk.codes_t, pk.scales, pk.d_out)
+    with pytest.raises(ValueError, match="one token"):
+        tlut._launch_nibbles_f32(torch.zeros((2, tcfg.n_groups, 128)), pk.codes_t, pk.scales,
+                                 pk.d_out)
+    # the scan kernel no longer takes nibble codes
+    assert set(tlut._SCAN_KINDS) == {torch.float32, torch.int8, torch.int16}

@@ -8,6 +8,7 @@ package's parameters across with :mod:`tpu_lutvq_torch.utils.convert`.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -96,8 +97,14 @@ def div_scalar(t: torch.Tensor, divisor: float) -> torch.Tensor:
     """``t / divisor`` as IEEE division on every device, as the JAX package
     divides: torch's CUDA kernels multiply by the reciprocal when the
     divisor is a Python number, which can round one bit away, so the
-    divisor goes in as a tensor on ``t``'s device."""
-    return t / torch.full((), divisor, dtype=t.dtype, device=t.device)
+    divisor goes in as a tensor on ``t``'s device (made once: no fill
+    kernel a call)."""
+    return t / _scalar_tensor(divisor, t.dtype, t.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_tensor(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def broadcast_codebook(cfg: VQConfig, codebook: torch.Tensor) -> torch.Tensor:

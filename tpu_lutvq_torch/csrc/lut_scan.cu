@@ -1,19 +1,14 @@
 // Lookup-accumulate over prebuilt f32, int8 or int16 tables for Hopper
-// (sm_90a), over byte codes or nibble-packed 4-bit codes.
+// (sm_90a), over byte codes.
 //
-// Replaces four kernels of tpu_lutvq/kernels/lut_gemv.py, reached through
+// Replaces three kernels of tpu_lutvq/kernels/lut_gemv.py, reached through
 // _lut_gemv_packed (:689) with per-token tables:
 //   ::_gemv_kernel     (:586)  f32 tables, f32 sum            (variant "f32")
 //   ::_gemv_kernel_i8  (:487)  int8 tables, exact int32 sum   (variant "i8")
 //   ::_gemv_kernel_i16 (:541)  int16 tables, exact int32 sum  (variant "i16")
-//   ::_gemv_kernel_nibbles       (:628)  nibble codes, one token's f32 table,
-//                                        f32 sum (variant "nibbles")
-// (nibble codes with 2-8 tokens' bf16 tables, "nibbles_bpair", have their own
-// kernel in lut_nibbles.cu.)  All compute
+// (nibble-packed codes, "nibbles" and "nibbles_bpair", have their own kernels
+// in lut_nibbles.cu.)  All compute
 //     y[b, j] = float(sum_g tab[b, g, codes_t[g, j]]) * s[j]
-// where a nibble-packed code row r holds group 2r in its low and group 2r+1
-// in its high nibble (the T-MAC layout, K = 16):
-//     y[b, j] = s[j] * sum_r (tab[b, 2r, codes_t[r, j] & 15] + tab[b, 2r+1, codes_t[r, j] >> 4])
 // and the wrapper multiplies the integer variants by each token's table
 // scale afterwards, the JAX package's order (lut_gemv.py:522-526, 878-880).
 // The TPU packs int8 entries four to a 32-bit gather word and int16 entries
@@ -41,14 +36,6 @@
 //     partial sums (int32 for the integer variants, so they stay exact) to a
 //     workspace that a second kernel adds in a fixed order.  With one split
 //     the first kernel writes the result itself.
-// The nibble kernel (T-MAC W4 projections at one token, G = 4 * d_in groups
-// of 16 entries) is bounded by the packed codes: G/2 * d_out bytes, 8 MiB at
-// 4096x4096 (2.5 us at 3.35 TB/s).  The TPU orders each token's table rows
-// [even groups; odd groups] and pads K = 16 to 128 lanes for its gather;
-// here a code row's two groups are adjacent in the staged table, which holds
-// only the 16 real entries of each group (64 B f32 a token), and one code
-// byte adds two entries.  A whole token's table (256 KiB f32 at d_in = 4096)
-// does not fit an SM, so G splits as above.
 // Left for later: overlapping code loads with staging, and a table layout
 // free of shared-memory bank conflicts for the 32-byte f32 entries.
 
@@ -85,12 +72,11 @@ __device__ __forceinline__ void add_entries(typename Acc<T>::type (&acc)[BP], co
   }
 }
 
-// kNibbles: a code byte holds two groups' 4-bit codes, and G counts code rows
-// tab:   (G, KP, BP) entries, token fastest; (2 G, KP, BP) with kNibbles
-// codes: (G_pad, d_out_pad) uint8, n-major groups (or group pairs)
+// tab:   (G, KP, BP) entries, token fastest
+// codes: (G_pad, d_out_pad) uint8, n-major groups
 // part:  (n_splits, BP, d_out_pad) partial sums, or null with one split
 // out:   (B, d_out) f32, written here when part is null
-template <typename T, int BP, bool kNibbles>
+template <typename T, int BP>
 __global__ void __launch_bounds__(kThreads)
 lut_scan_partial(const T* __restrict__ tab, const uint8_t* __restrict__ codes,
                  const float* __restrict__ scales, typename Acc<T>::type* __restrict__ part,
@@ -99,7 +85,7 @@ lut_scan_partial(const T* __restrict__ tab, const uint8_t* __restrict__ codes,
   using A = typename Acc<T>::type;
   extern __shared__ __align__(32) unsigned char smem[];
   const T* stage = reinterpret_cast<const T*>(smem);
-  const int row_elems = KP * BP * (kNibbles ? 2 : 1);  // one code row's tables
+  const int row_elems = KP * BP;                  // one group's tables
   const int g_begin = blockIdx.y * g_per_split;
   const int g_end = min(G, g_begin + g_per_split);
   const bool one_stage = g_end - g_begin <= stage_groups;
@@ -135,12 +121,7 @@ lut_scan_partial(const T* __restrict__ tab, const uint8_t* __restrict__ codes,
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             const uint32_t code = (c4 >> (8 * c)) & 0xffu;
-            if constexpr (kNibbles) {
-              add_entries<T, BP>(acc[c], row + (code & 0xfu) * BP);
-              add_entries<T, BP>(acc[c], row + (KP + (code >> 4)) * BP);
-            } else {
-              add_entries<T, BP>(acc[c], row + code * BP);
-            }
+            add_entries<T, BP>(acc[c], row + code * BP);
           }
         }
       }
@@ -194,20 +175,20 @@ __global__ void lut_scan_reduce(const A* __restrict__ part, const float* __restr
   out[idx] = v;
 }
 
-template <typename T, int BP, bool kNibbles>
+template <typename T, int BP>
 int launch(const void* tab, const void* codes, const void* scales, void* ws, void* out,
            int B, int G, int KP, int d_out, int d_out_pad, int g_per_split, int n_splits,
            int stage_groups, int grid_x, cudaStream_t stream) {
   using A = typename Acc<T>::type;
-  const int smem = stage_groups * KP * BP * (kNibbles ? 2 : 1) * static_cast<int>(sizeof(T));
+  const int smem = stage_groups * KP * BP * static_cast<int>(sizeof(T));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lut_scan_partial<T, BP, kNibbles>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lut_scan_partial<T, BP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   A* part = n_splits > 1 ? static_cast<A*>(ws) : nullptr;
   dim3 grid(grid_x, n_splits);
-  lut_scan_partial<T, BP, kNibbles><<<grid, kThreads, smem, stream>>>(
+  lut_scan_partial<T, BP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tab), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scales), part, static_cast<float*>(out), B, G, KP, d_out,
       d_out_pad, g_per_split, stage_groups);
@@ -220,49 +201,37 @@ int launch(const void* tab, const void* codes, const void* scales, void* ws, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kNibbles>
+template <typename T>
 int launch_bp(int BP, const void* tab, const void* codes, const void* scales, void* ws,
               void* out, int B, int G, int KP, int d_out, int d_out_pad, int g_per_split,
               int n_splits, int stage_groups, int grid_x, cudaStream_t stream) {
   switch (BP) {
-    case 1: return launch<T, 1, kNibbles>(tab, codes, scales, ws, out, B, G, KP, d_out,
-                                          d_out_pad, g_per_split, n_splits, stage_groups,
-                                          grid_x, stream);
-    case 2: return launch<T, 2, kNibbles>(tab, codes, scales, ws, out, B, G, KP, d_out,
-                                          d_out_pad, g_per_split, n_splits, stage_groups,
-                                          grid_x, stream);
-    case 4: return launch<T, 4, kNibbles>(tab, codes, scales, ws, out, B, G, KP, d_out,
-                                          d_out_pad, g_per_split, n_splits, stage_groups,
-                                          grid_x, stream);
-    case 8: return launch<T, 8, kNibbles>(tab, codes, scales, ws, out, B, G, KP, d_out,
-                                          d_out_pad, g_per_split, n_splits, stage_groups,
-                                          grid_x, stream);
+    case 1: return launch<T, 1>(tab, codes, scales, ws, out, B, G, KP, d_out, d_out_pad,
+                                g_per_split, n_splits, stage_groups, grid_x, stream);
+    case 2: return launch<T, 2>(tab, codes, scales, ws, out, B, G, KP, d_out, d_out_pad,
+                                g_per_split, n_splits, stage_groups, grid_x, stream);
+    case 4: return launch<T, 4>(tab, codes, scales, ws, out, B, G, KP, d_out, d_out_pad,
+                                g_per_split, n_splits, stage_groups, grid_x, stream);
+    case 8: return launch<T, 8>(tab, codes, scales, ws, out, B, G, KP, d_out, d_out_pad,
+                                g_per_split, n_splits, stage_groups, grid_x, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// kind: 0 = f32 tables (K; J1 with nibbles), 1 = int8 (H), 2 = int16 (I).
-// nibbles: codes hold two 4-bit codes a byte,
-// G counts code rows and the table holds 2 G groups of KP entries.
-extern "C" int lutvq_lut_scan(int kind, int nibbles, const void* tab, const void* codes,
+// kind: 0 = f32 tables (K), 1 = int8 (H), 2 = int16 (I).
+extern "C" int lutvq_lut_scan(int kind, const void* tab, const void* codes,
                               const void* scales, void* ws, void* out, int B, int BP, int G,
                               int KP, int d_out, int d_out_pad, int g_per_split, int n_splits,
                               int stage_groups, int grid_x, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define LUTVQ_SCAN_ARGS BP, tab, codes, scales, ws, out, B, G, KP, d_out, d_out_pad, \
                         g_per_split, n_splits, stage_groups, grid_x, stream
-  if (nibbles) {
-    switch (kind) {
-      case 0: return launch_bp<float, true>(LUTVQ_SCAN_ARGS);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   switch (kind) {
-    case 0: return launch_bp<float, false>(LUTVQ_SCAN_ARGS);
-    case 1: return launch_bp<int8_t, false>(LUTVQ_SCAN_ARGS);
-    case 2: return launch_bp<int16_t, false>(LUTVQ_SCAN_ARGS);
+    case 0: return launch_bp<float>(LUTVQ_SCAN_ARGS);
+    case 1: return launch_bp<int8_t>(LUTVQ_SCAN_ARGS);
+    case 2: return launch_bp<int16_t>(LUTVQ_SCAN_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LUTVQ_SCAN_ARGS

@@ -58,12 +58,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lutvq_lut_gemv.argtypes = [vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
     lib.lutvq_lut_gemv.restype = i32
-    lib.lutvq_lut_scan.argtypes = [i32, i32] + [vp] * 5 + [i32] * 10 + [vp]
+    lib.lutvq_lut_scan.argtypes = [i32] + [vp] * 5 + [i32] * 10 + [vp]
     lib.lutvq_lut_scan.restype = i32
     lib.lutvq_lut_nibbles_bf16.argtypes = [vp] * 4 + [i32] * 9 + [vp]
     lib.lutvq_lut_nibbles_bf16.restype = i32
     lib.lutvq_lut_nibbles_bf16_clusters.argtypes = [i32] * 4
     lib.lutvq_lut_nibbles_bf16_clusters.restype = i32
+    lib.lutvq_lut_nibbles_f32.argtypes = [vp] * 4 + [i32] * 9 + [vp]
+    lib.lutvq_lut_nibbles_f32.restype = i32
+    lib.lutvq_lut_nibbles_f32_clusters.argtypes = [i32] * 3
+    lib.lutvq_lut_nibbles_f32_clusters.restype = i32
     lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 11 + [vp]
     lib.lutvq_dequant_mm.restype = i32
     lib.lutvq_dequant_mm_i8.argtypes = [vp] * 6 + [i32] * 12 + [vp]
@@ -78,8 +82,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_dequant_mm_f32.restype = i32
     lib.lutvq_flash_decode.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.c_float, vp]
     lib.lutvq_flash_decode.restype = i32
-    lib.lutvq_flash_prefill.argtypes = [vp] * 7 + [i32] * 9 + [ctypes.c_float, vp]
+    lib.lutvq_flash_prefill.argtypes = [vp] * 7 + [i32] * 11 + [ctypes.c_float, vp]
     lib.lutvq_flash_prefill.restype = i32
+    lib.lutvq_flash_prefill_clusters.argtypes = [i32] * 4
+    lib.lutvq_flash_prefill_clusters.restype = i32
     lib.lutvq_error_string.argtypes = [i32]
     lib.lutvq_error_string.restype = ctypes.c_char_p
 

@@ -20,9 +20,10 @@ flavours of table, each a hand-written CUDA kernel for 1 to
   counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``;
 - ``nibbles``/``nibbles_bpair`` (B=1 / B≥2), the only variants of a
   nibble-packed (T-MAC, K=16) pack: two groups' 4-bit codes a byte, one
-  token's f32 table (the same source) or 2-8 tokens' bf16 tables
-  (``csrc/lut_nibbles.cu``, split over a thread-block cluster as
-  :func:`plan_nibbles` says), f32 sum — wrapper :func:`lut_lookup_nibbles`,
+  token's f32 table (J1) or 2-8 tokens' bf16 tables (J2), f32 sum — one
+  source, ``csrc/lut_nibbles.cu``, its code rows split over a thread-block
+  cluster as :func:`plan_nibbles_f32` (J1) or :func:`plan_nibbles` (J2)
+  says — wrapper :func:`lut_lookup_nibbles`,
   counters ``LUT_GEMV_NIBBLES_LAUNCHES``/``LUT_GEMV_NIBBLES_BPAIR_LAUNCHES``.
 
 A wrapper launches its kernel for a CUDA tensor (and counts the launch) or
@@ -90,18 +91,25 @@ _SCAN_TILE_COLS = 1024  # csrc/lut_scan.cu kTileCols
 _SCAN_STAGE_BYTES = 128 * 1024  # staged table slice per block (f32 G=16 K=256 B=8)
 _SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory, 1 KiB of it per block reserved
 NIBBLE_K = 16  # table entries a group has under 4-bit codes
-# (entry type, nibble codes) → (kernel kind in csrc/lut_scan.cu, its counter)
+# entry type → (kernel kind in csrc/lut_scan.cu, its counter)
 _SCAN_KINDS = {
-    (torch.float32, False): (0, "LUT_GEMV_F32_LAUNCHES"),
-    (torch.int8, False): (1, "LUT_GEMV_I8_LAUNCHES"),
-    (torch.int16, False): (2, "LUT_GEMV_I16_LAUNCHES"),
-    (torch.float32, True): (0, "LUT_GEMV_NIBBLES_LAUNCHES"),
+    torch.float32: (0, "LUT_GEMV_F32_LAUNCHES"),
+    torch.int8: (1, "LUT_GEMV_I8_LAUNCHES"),
+    torch.int16: (2, "LUT_GEMV_I16_LAUNCHES"),
 }
-# csrc/lut_nibbles.cu (J2): column tiles a block may take, blocks a cluster
-# may hold (the portable cluster size), the table bytes staged at a time
+# csrc/lut_nibbles.cu (J1, J2): column tiles a block may take, blocks a
+# cluster may hold (the portable cluster size), the table bytes staged at a
+# time
 NIBBLE_TILE_COLS = (1024, 512, 256, 128)
 NIBBLE_MAX_SPLITS = 8
 _NIBBLE_STAGE_BYTES = 128 * 1024
+# plan_nibbles_f32's cost model (fit to J1's H100 sweep of tile and split
+# sizes at the T-MAC shapes): a block's fixed cost in column lookups, the
+# SMs a wave of clusters leaves idle, and the cluster sizes it takes (odd
+# ones read slower on the H100)
+_F32_BLOCK_LOOKUPS = 40_000
+_F32_IDLE_SMS = 8
+NIBBLE_F32_SPLITS = (1, 2, 4, 6, 8)
 VARIANTS = ("auto", "pair", "pairf", "bpair", "f32", "i8", "i16")
 NIBBLE_VARIANTS = ("nibbles", "nibbles_bpair")  # what a nibble pack resolves to
 
@@ -310,21 +318,20 @@ def lut_lookup_pairf(
     return _launch_pairf(lut, codes_t, scales, d_out)
 
 
-def _prepare(lut, codes_t, scales, d_out, tile_cols, name, per_row=1):
+def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
     """What the lookup kernels check and take: the table in (G, Kp, token)
     layout, tokens padded to the kernel's tile, so that one load fetches
-    every token's entry; and the code rows (``per_row`` groups each) split
-    until column tiles × splits fill the card twice over.  Returns (table,
-    token tile, SMs, column tiles, code rows per split, splits)."""
+    every token's entry; and the groups split until column tiles × splits
+    fill the card twice over.  Returns (table, token tile, SMs, column
+    tiles, groups per split, splits)."""
     b, g, kp = lut.shape
     g_pad, d_out_pad = codes_t.shape
-    rows = g // per_row
-    kps = (NIBBLE_K,) if per_row == 2 else (LANE, 2 * LANE)
+    kps = (LANE, 2 * LANE)
     if b > MAX_LUT_BATCH:
         raise ValueError(f"{name} kernel takes ≤ {MAX_LUT_BATCH} tokens, got {b}")
     if kp not in kps:
         raise ValueError(f"{name} kernel takes Kp in {kps}, got {kp}")
-    if rows > g_pad or d_out > d_out_pad or d_out_pad % LANE:
+    if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
         raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
     bp = next(t for t in _TOKEN_TILES if t >= b)
     tab = lut.permute(1, 2, 0)  # at B=1 already (G, Kp, 1) in memory: no copy
@@ -337,8 +344,8 @@ def _prepare(lut, codes_t, scales, d_out, tile_cols, name, per_row=1):
         _build.require_cuda_tensor(scales, "scales", torch.float32)
     n_tiles = -(-d_out_pad // tile_cols)
     sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
-    g_per_split = max(16, math.ceil(rows / max(1, math.ceil(2 * sms / n_tiles))))
-    return tab, bp, sms, n_tiles, g_per_split, -(-rows // g_per_split)
+    g_per_split = max(16, math.ceil(g / max(1, math.ceil(2 * sms / n_tiles))))
+    return tab, bp, sms, n_tiles, g_per_split, -(-g // g_per_split)
 
 
 def _launch(lut, codes_t, scales, d_out):
@@ -564,18 +571,18 @@ def lut_lookup_nibbles(
     d_out: int,
 ) -> torch.Tensor:
     """The nibble kernels' wrapper (the table's type picks the kernel: f32
-    → ``nibbles``, bf16 → ``nibbles_bpair``): plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor."""
+    → ``nibbles`` (J1), bf16 → ``nibbles_bpair`` (J2)): plain version for a
+    CPU tensor, the CUDA kernel for a CUDA tensor."""
     if lut.device.type == "cpu":
         return lut_lookup_nibbles_plain(lut, codes_t, scales, d_out)
     if lut.dtype == torch.bfloat16:
         return _launch_nibbles_bf16(lut, codes_t, scales, d_out)
-    return _launch_table(lut, codes_t, scales, d_out, nibbles=True)
+    return _launch_nibbles_f32(lut, codes_t, scales, d_out)
 
 
 @dataclasses.dataclass(frozen=True)
 class NibblePlan:
-    """How ``csrc/lut_nibbles.cu`` covers ``rows`` code rows × the padded
+    """How ``csrc/lut_nibbles.cu`` (J1 or J2) covers ``rows`` code rows × the padded
     width: ``grid`` = (column tiles of ``tile_cols``, ``n_splits``), the
     splits of a tile one cluster; split ``q`` takes ``slice_rows`` rows from
     ``q * slice_rows`` and stages their tables ``stage_rows`` at a time."""
@@ -624,10 +631,46 @@ def plan_nibbles(rows: int, d_out_pad: int, bp: int, sms: int, fits=None) -> Nib
 
 
 @functools.lru_cache(maxsize=None)
+def plan_nibbles_f32(rows: int, d_out_pad: int, sms: int, fits=None) -> NibblePlan:
+    """J1's split (one token's f32 tables): as :func:`plan_nibbles`, but the
+    cost also counts a block's fixed cost (its first code loads' latency,
+    the cluster barrier and the rank-order sums, ~_F32_BLOCK_LOOKUPS
+    lookups) and the blocks that share an SM: a wave of clusters spreads
+    over at most ``sms - _F32_IDLE_SMS`` SMs (clusters fill whole GPCs; on
+    an H100 a wave was seen on 120-124 of its 132), and blocks past that
+    count twice.
+    Each code row's tables are 128 bytes; the cluster sizes are
+    NIBBLE_F32_SPLITS.  ``fits(1, tile_cols, n_splits, stage_rows)`` as
+    for J2.  Pure."""
+    usable = max(1, sms - _F32_IDLE_SMS)
+    best = None
+    for tc in NIBBLE_TILE_COLS:
+        tiles = -(-d_out_pad // tc)
+        for ns in NIBBLE_F32_SPLITS:
+            slice_rows = -(-rows // ns)
+            if slice_rows * (ns - 1) >= rows:
+                continue
+            stage_rows = min(slice_rows, _NIBBLE_STAGE_BYTES // (2 * NIBBLE_K * 4))
+            slots = sms // ns if fits is None else fits(1, tc, ns, stage_rows)
+            if slots < 1:
+                continue
+            per_sm = -(-min(tiles, slots) * ns // usable)
+            cost = -(-tiles // slots) * ((tc + 6) * slice_rows * per_sm + _F32_BLOCK_LOOKUPS)
+            key = (cost, tiles * ns)
+            if best is None or key < best[0]:
+                best = (key, NibblePlan(tc, ns, slice_rows, stage_rows, (tiles, ns)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
 def _cluster_fits(bp: int, tile_cols: int, n_splits: int, stage_rows: int) -> int:
-    """Clusters of a J2 plan the card holds at once (the CUDA occupancy
-    query); 0 when one cannot launch."""
-    n = _build.library().lutvq_lut_nibbles_bf16_clusters(bp, tile_cols, n_splits, stage_rows)
+    """Clusters of a J2 (``bp`` ≥ 2) or J1 (``bp`` 1) plan the card holds at
+    once (the CUDA occupancy query); 0 when one cannot launch."""
+    lib = _build.library()
+    if bp == 1:
+        n = lib.lutvq_lut_nibbles_f32_clusters(tile_cols, n_splits, stage_rows)
+    else:
+        n = lib.lutvq_lut_nibbles_bf16_clusters(bp, tile_cols, n_splits, stage_rows)
     return max(n, 0)
 
 
@@ -657,8 +700,7 @@ def _launch_nibbles_bf16(lut, codes_t, scales, d_out):
         _build.require_cuda_tensor(t, name, dtype)
     if scales is not None:
         _build.require_cuda_tensor(scales, "scales", torch.float32)
-    sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
-    plan = plan_nibbles(rows, d_out_pad, bp, sms, _cluster_fits)
+    plan = plan_nibbles(rows, d_out_pad, bp, _sms(lut.device), _cluster_fits)
     out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
     lib = _build.library()
     err = lib.lutvq_lut_nibbles_bf16(
@@ -671,25 +713,48 @@ def _launch_nibbles_bf16(lut, codes_t, scales, d_out):
     return out
 
 
-def _launch_table(lut, codes_t, scales, d_out, nibbles=False):
-    if (lut.dtype, nibbles) not in _SCAN_KINDS:
-        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, or f32 ones over "
-                         f"nibble codes; got {lut.dtype} (nibbles={nibbles})")
-    kind, counter = _SCAN_KINDS[(lut.dtype, nibbles)]
-    per_row = 1
-    if nibbles:
-        # the 16 real entries of each group, and groups paired to code rows
-        # (an odd count gets a zero group for the last row's high nibble)
-        per_row, lut = 2, lut[..., :NIBBLE_K]
-        if lut.shape[1] % 2:
-            lut = F.pad(lut, (0, 0, 0, 1))
+def _launch_nibbles_f32(lut, codes_t, scales, d_out):
+    """J1 over build_lut's (1, G, Kp) f32 table as it is: the kernel stages
+    the 16 real entries of each group (and a zero group past an odd G)
+    itself, so the call is one launch."""
+    global LUT_GEMV_NIBBLES_LAUNCHES
+    b, g, kp = lut.shape
+    r_pad, d_out_pad = codes_t.shape
+    rows = -(-g // 2)
+    if b != 1 or kp < NIBBLE_K or kp % 4:
+        raise ValueError(f"nibbles kernel takes one token's table of ≥ {NIBBLE_K} entries "
+                         f"(a multiple of 4), got {tuple(lut.shape)}")
+    if rows > r_pad or d_out > d_out_pad or d_out_pad % LANE:
+        raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
+    tab = lut.contiguous()  # build_lut's table already is: no copy
+    for t, name, dtype in ((tab, "lut", torch.float32), (codes_t, "codes_t", torch.uint8)):
+        _build.require_cuda_tensor(t, name, dtype)
+    if scales is not None:
+        _build.require_cuda_tensor(scales, "scales", torch.float32)
+    plan = plan_nibbles_f32(rows, d_out_pad, _sms(lut.device), _cluster_fits)
+    out = torch.empty((1, d_out), dtype=torch.float32, device=lut.device)
+    lib = _build.library()
+    err = lib.lutvq_lut_nibbles_f32(
+        tab.data_ptr(), codes_t.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), g, kp, rows, d_out, d_out_pad, plan.tile_cols, plan.n_splits,
+        plan.slice_rows, plan.stage_rows, _build.stream_ptr(lut),
+    )
+    _build.check(lib, err, "lut_nibbles_f32")
+    LUT_GEMV_NIBBLES_LAUNCHES += 1
+    return out
+
+
+def _launch_table(lut, codes_t, scales, d_out):
+    if lut.dtype not in _SCAN_KINDS:
+        raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, got {lut.dtype}")
+    kind, counter = _SCAN_KINDS[lut.dtype]
     b, g, kp = lut.shape
     d_out_pad = codes_t.shape[1]
     tab, bp, sms, n_tiles, g_per_split, n_splits = _prepare(
-        lut, codes_t, scales, d_out, _SCAN_TILE_COLS, "lut_scan", per_row)
+        lut, codes_t, scales, d_out, _SCAN_TILE_COLS, "lut_scan")
     # the whole G-slice staged once when it fits; blocks per SM as many as
     # the shared memory holds, and no more than there are column tiles
-    row_bytes = per_row * kp * bp * tab.element_size()
+    row_bytes = kp * bp * tab.element_size()
     stage_groups = min(g_per_split, _SCAN_STAGE_BYTES // row_bytes)
     per_sm = max(1, min(8, _SM_SHARED_BYTES // (stage_groups * row_bytes + 1024)))
     grid_x = min(n_tiles, per_sm * sms)
@@ -700,10 +765,10 @@ def _launch_table(lut, codes_t, scales, d_out, nibbles=False):
     out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
     lib = _build.library()
     err = lib.lutvq_lut_scan(
-        kind, int(nibbles), tab.data_ptr(), codes_t.data_ptr(),
+        kind, tab.data_ptr(), codes_t.data_ptr(),
         None if scales is None else scales.data_ptr(),
         None if ws is None else ws.data_ptr(), out.data_ptr(),
-        b, bp, g // per_row, kp, d_out, d_out_pad, g_per_split, n_splits, stage_groups,
+        b, bp, g, kp, d_out, d_out_pad, g_per_split, n_splits, stage_groups,
         grid_x, _build.stream_ptr(lut),
     )
     _build.check(lib, err, "lut_scan")

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_lutvq_torch.core.params import div_scalar
+
 
 class KVCache(NamedTuple):
     """One layer's cache.
@@ -59,7 +61,7 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., Dh) → int8 values + (...) f32 scales (symmetric, per row;
     ``torch.round`` rounds half to even, as ``jnp.round`` does)."""
     absmax = x.abs().amax(dim=-1)
-    scale = absmax.clamp_min(1e-10) / 127.0
+    scale = div_scalar(absmax.clamp_min(1e-10), 127.0)
     q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale.float()
 
