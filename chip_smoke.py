@@ -8,12 +8,14 @@ Phases, one result line each; any failure raises and exits non-zero:
   1. build: compile ``tpu_lutvq_torch/csrc/*.cu`` (one nvcc per source, in
      parallel, sm_90a), link and load; one line per kernel with registers
      and spills, and the redesigned sources' kernels (flash decode's three,
-     flash prefill's, J1's and J2's, G's and its fold's, B's) must not spill;
+     flash prefill's, J1's and J2's, G's and its fold's, B's, and every
+     instance of lut_scan.cu's A/M/K/H/I template) must not spill;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      inputs, error, CUDA-event median times and profiler device times, at
      the shapes its path gives it: the projections at the Llama-2-7B shapes
-     and a padded d_out (the lookup at 1 token (A) and 2/3/4/8 (B, with its
-     shared-memory floor), the bf16x2 dequant-matmul at 7/8/16/256/1024 rows,
+     and a padded d_out (the lookup at 1 token (A, one kernel a call by the
+     profiler) and 2/3/4/8 (B), each with its shared-memory floor, the
+     bf16x2 dequant-matmul at 7/8/16/256/1024 rows,
      and with per-subvector codebooks at 8/256); flash
      decode (slab and paged) at B 1/8, the 7B (32/32) and 70B (64/8) head
      layouts, windows 256/2048, int8 and bf16 KV, rows past pos poisoned;
@@ -24,11 +26,13 @@ Phases, one result line each; any failure raises and exits non-zero:
      phase 5 gives them (8 queries over a million codes: bf16 tables at
      PQ16 and at RQ's 4 codebooks, f32 at PQ16 and at the refine bounds' 8
      subquantizers, int8 and int16 at PQ16), a lone query at K=128 and (f32,
-     int8, int16) a 7B projection; the precision tiers at the 7B projection
+     int8, int16) a 7B projection, two calls bit-equal, one kernel a call at
+     the projection (profiler); the precision tiers at the 7B projection
      shapes: the W8A8 dequant-matmul and its fold kernel at 7/8/16/256 rows
      (and the kernels one whole W8A8 call launches, by the profiler), the f32 one at
      7/256/1024 rows (and at 8/256 with per-subvector codebooks and with
-     d_subvec 3, its general path), ``pairf`` at one token; the three dequant
+     d_subvec 3, its general path), ``pairf`` at one token (M: A's kernel,
+     one launch a call, two calls bit-equal); the three dequant
      kernels, B, the attention kernels and the nibble lookups give bit-equal
      outputs from two calls; the T-MAC W4 nibble lookups (J1 at one token's f32
      table, one kernel a call by the profiler, J2 at 2, 8 and 16 tokens' bf16
@@ -112,6 +116,21 @@ buffer, which no tool on the card reports.
 
 holds phase 8 (a)'s loaded checkpoint to the logits gate at ten prompt
 seeds: how the chaotic random model's readings spread around the limit.
+
+    python3 chip_smoke.py --plans     # phases 0-1, then csrc/lut_scan.cu's plans
+
+launches every candidate plan of ``kernels/lut_gemv.py::plan_scan`` at the
+shapes the main paths give A, M, K, H and I (``PLAN_CASES``), each held to
+the plain version and timed on the device, beside the plan the wrapper
+picks: the data of the plan's cost model.
+
+    python3 chip_smoke.py --lookups   # phases 0-1, then the lookups alone
+
+times A and M at phase 2's projection shapes and K, H and I at its scans
+and a 4096x4096 projection (device time, kernels a call, error), counts
+phase 3 (b)'s launches a decode step (also under ``--profile``) and runs
+phase 5.  It calls the wrappers alone, so copied into an earlier tree's
+checkout it measures that tree the same way.
 """
 
 import contextlib
@@ -155,18 +174,21 @@ TABLE_SCANS = {
 # by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-# J1's, J2's and B's lookup floor: their shared-memory bytes at 128 B a
+# the lookups' floor (A, M, B, J1, J2): their shared-memory bytes at 128 B a
 # clock an SM, at the card's maximum SM clock (nvidia-smi clocks.max.sm, read
 # in phase 0)
 SMEM_BYTES_CLK = 128
 SM_CLOCK_HZ = None
 # kernels of the sources redesigned for Hopper that phase 1 holds to zero
 # spills: csrc/flash_decode.cu (D, F), csrc/lut_nibbles.cu (J1, J2),
-# csrc/dequant_mm_i8.cu (G and the W8A8 fold), csrc/lut_bpair.cu (B) and
-# csrc/flash_prefill.cu (E)
+# csrc/dequant_mm_i8.cu (G and the W8A8 fold), csrc/lut_bpair.cu (B),
+# csrc/flash_prefill.cu (E) and csrc/lut_scan.cu (A, M, K, H, I: every
+# instance of its one template)
 NO_SPILL_KERNELS = ("decode_scores", "decode_values", "decode_combine", "lut_nibbles_bf16",
                     "lut_nibbles_f32", "dequant_mm_i8", "fold_i8", "lut_bpair",
-                    "flash_prefill_cluster")
+                    "flash_prefill_cluster", "lut_scan")
+# the profiler's name of csrc/lut_scan.cu's kernel (A, M, K, H, I)
+SCAN_KERNEL = "lut_scan"
 # flash decode's and flash prefill's kernels as the profiler names them
 # (this tree's and the designs before it), for --profile's shares of device
 # time
@@ -578,15 +600,18 @@ def phase_kernels(device):
             want = lg.lut_lookup_plain(*args)
             torch.cuda.synchronize()
             xb = x.to(torch.bfloat16)
-            # B's floor: its token tile's bf16 entries from shared memory per
+            # the lookup floor: B's token tile's bf16 entries, A's one 4-byte
+            # word (the entry rounded, as staged), from shared memory per
             # group and column
             bp = next(t for t in (2, 4, 8) if t >= b)
-            smem = cfg.n_groups * packed.codes_t.shape[1] * bp * 2
+            smem = cfg.n_groups * packed.codes_t.shape[1] * (4 if b == 1 else bp * 2)
+            extra = {}
+            if b == 1:  # A: one kernel a call, from build_lut's f32 table as it is
+                extra["call_kernels"] = launched_kernels(lambda: lg.lut_lookup(*args))
             rows["lut_gemv" if b == 1 else "lut_gemv_bpair"].append(with_bound(dict(
                 shape=f"{d_in}x{d_out} B={b}", rel=rel_err(got, want),
                 abs=float((got - want).abs().max()), control=rel_err(lut_control(*args), want),
-                equal=bool(torch.equal(got, again)),
-                floor_ms=None if b == 1 else lookup_floor_ms(smem),
+                equal=bool(torch.equal(got, again)), floor_ms=lookup_floor_ms(smem), **extra,
                 **kernel_times(lambda: lg.lut_lookup(*args), lambda: lg.lut_lookup_plain(*args),
                                lambda: xb @ w.T, reps=20, plain_reps=20),
             ), nbytes(*args[:3], got), b * cfg.n_groups * d_out, "f32"))
@@ -610,11 +635,27 @@ def phase_kernels(device):
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
                   + times(r) + floor_text(r.get("floor_ms"))
-                  + (f"  two calls bit-equal {r['equal']}" if "equal" in r else ""))
+                  + (f"  two calls bit-equal {r['equal']}" if "equal" in r else "")
+                  + one_kernel_text(r))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
             check(r.get("equal", True), f"{name} {r['shape']}: two calls differ")
+            check_one_kernel(name, r)
     return rows
+
+
+def one_kernel_text(r):
+    ks = r.get("call_kernels")
+    return "" if ks is None else (f"  one call launches {sum(ks.values())} kernels: "
+                                  + ", ".join(f"{k[:48]} x{c}" for k, c in ks.items()))
+
+
+def check_one_kernel(name, r):
+    """A row's ``call_kernels`` (the profiler's kernels of one warm call)
+    must be one launch of csrc/lut_scan.cu's kernel."""
+    ks = r.get("call_kernels")
+    check(ks is None or (sum(ks.values()) == 1 and SCAN_KERNEL in next(iter(ks))),
+          f"{name} {r['shape']}: one call launched {ks}")
 
 
 def dequant_row(shape, cfg, packed, w, r, gen):
@@ -682,9 +723,13 @@ def table_row(shape, cfg, packed, lut, variant, library, wrapper=None):
         "f32": (lg.lut_lookup_table, functools.partial(lg.lut_lookup_plain, round_bf16=False)),
     }.get(variant, (lg.lut_lookup_table, lg.lut_lookup_int_plain))
     args = (tab, packed.codes_t, packed.scales, packed.d_out)
+    first, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
     row = dict(shape=shape, rel=rel_err(got, want), abs=float((got - want).abs().max()),
-               control=rel_err(control, want),
+               control=rel_err(control, want), equal=bool(torch.equal(first, again)),
                **kernel_times(lambda: kernel(*args), lambda: plain(*args), library, reps=20))
+    if variant != "bpair" and packed.d_out != ANN_N:  # a projection: one launch
+        row["call_kernels"] = launched_kernels(lambda: kernel(*args))
     if wrapper is not None:
         kernel_path, plain_path = wrapper
         y, y_plain = kernel_path(), plain_path()
@@ -745,12 +790,109 @@ def phase_tables(device):
                          f"{r['wrapper_rel']:.3e}, {r['wrapper_ms']:.4f} ms")
             print(f"[kernels] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
                   f"wrong-rounding control {r['control']:.3e}) abs err {r['abs']:.3e}  "
-                  + times(r) + extra)
+                  + times(r) + extra + f"  two calls bit-equal {r['equal']}"
+                  + one_kernel_text(r))
             check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
             check(r.get("wrapper_rel", 0.0) <= tol,
                   f"{name} {r['shape']}: lut_gemv disagrees with plain: {r.get('wrapper_rel')}")
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
+            check(r["equal"], f"{name} {r['shape']}: two calls differ")
+            check_one_kernel(name, r)
     return rows
+
+
+# --plans: the shapes the main paths give csrc/lut_scan.cu, (label, kind,
+# tokens, groups, width, K): A and M at the Llama-2-7B projections and the
+# padded d_out, K/H/I at phase 5's scans and a lone query, and at a 7B
+# projection through lut_gemv(variant=f32|i8|i16)
+PLAN_CASES = (
+    ("A 4096x4096", 0, 1, 1024, 4096, 256), ("A 4096x11008", 0, 1, 1024, 11008, 256),
+    ("A 11008x4096", 0, 1, 2752, 4096, 256), ("A 4096x1100", 0, 1, 1024, 1100, 256),
+    ("K scan B=8 G=8", 1, 8, 8, ANN_N, 256), ("K scan B=8 G=16", 1, 8, 16, ANN_N, 256),
+    ("H scan B=8 G=16", 2, 8, 16, ANN_N, 256), ("I scan B=8 G=16", 3, 8, 16, ANN_N, 256),
+    ("K scan B=1 G=16 K=128", 1, 1, 16, ANN_N, 128), ("H scan B=1 G=16 K=128", 2, 1, 16, ANN_N, 128),
+    ("I scan B=1 G=16 K=128", 3, 1, 16, ANN_N, 128),
+    ("K 4096x4096 B=1", 1, 1, 1024, 4096, 256), ("K 4096x4096 B=8", 1, 8, 1024, 4096, 256),
+    ("H 4096x4096 B=1", 2, 1, 1024, 4096, 256), ("H 4096x4096 B=8", 2, 8, 1024, 4096, 256),
+    ("I 4096x4096 B=1", 3, 1, 1024, 4096, 256), ("I 4096x4096 B=8", 3, 8, 1024, 4096, 256),
+)
+
+
+def kernel_device_ms(fns, calls=5):
+    """Each ``fn``'s device time, its one csrc/lut_scan.cu kernel's mean
+    duration over ``calls`` calls, from one profiler run: the kernels
+    are assigned to the functions in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and SCAN_KERNEL in e.name), key=lambda e: e.time_range.start)
+    check(len(ev) == calls * len(fns), f"{len(ev)} kernels for {len(fns)} x {calls} calls")
+    return [sum(e.time_range.elapsed_us() for e in ev[i * calls:(i + 1) * calls]) / calls / 1e3
+            for i in range(len(fns))]
+
+
+def phase_plans(device):
+    """``--plans``: every candidate plan of ``plan_scan`` (``kernels/
+    lut_gemv.py::scan_candidates``) at each of ``PLAN_CASES`` launched
+    through the wrapper's ``plan=`` hook, held to the plain version (equal
+    for the integer kinds, 1e-5 else) and timed on the device (profiler);
+    then the plan the wrapper picks beside the fastest: the data the cost
+    model's constants come from."""
+    from tpu_lutvq_torch import VQConfig, VQParams
+
+    lg, _ = kernel_modules()
+    gen = torch.Generator(device).manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, kind, b, g, width, k in PLAN_CASES:
+        cfg = VQConfig(8 * g, g, 1, k)
+        codes = torch.randint(0, k, (width, g, 1), generator=gen, device=device,
+                              dtype=torch.int32).to(torch.uint8)
+        packed = lg.pack_params(cfg, VQParams(torch.zeros((1, 1, 1, 1), device=device), codes))
+        del codes
+        codes_t, d_out_pad = packed.codes_t, packed.codes_t.shape[1]
+        scales = 1 + 0.1 * torch.rand((1, d_out_pad), generator=gen, device=device)
+        lut = torch.randn((b, g, k), generator=gen, device=device)
+        if kind == 2:
+            lut = lg.quantize_lut_int8(lut, axis=(1, 2))[0]
+        elif kind == 3:
+            lut = lg.quantize_lut_int16(lut, axis=(1, 2))[0]
+        if kind >= 2:
+            want = lg.lut_lookup_int_plain(lut, codes_t, scales, width)
+        else:
+            want = lg.lut_lookup_plain(lut, codes_t, scales, width, round_bf16=kind == 0)
+        bp = next(t for t in (1, 2, 4, 8) if t >= b)
+        chosen = lg.plan_scan(kind, bp, g, d_out_pad, k, sms, lg._scan_fits)
+        cands = sorted(lg.scan_candidates(kind, bp, g, d_out_pad, k, sms, lg._scan_fits),
+                       key=lambda c: c[0])
+        runs, rows = [], []
+        for key, plan in cands:
+            def run(plan=plan):
+                return lg._run_scan(kind, lut, codes_t, scales, width, label, plan=plan)
+            got = run()
+            torch.cuda.synchronize()
+            err = 0.0 if torch.equal(got, want) else rel_err(got, want)
+            ok = err == 0.0 if kind >= 2 else err <= 1e-5
+            runs.append(run)
+            rows.append([None, key[0], err, ok, plan])
+        for row, ms in zip(rows, kernel_device_ms(runs)):
+            row[0] = ms
+        print(f"[plans] {label}: {len(rows)} candidates; picked {chosen}")
+        for ms, model, err, ok, plan in rows:
+            tag = " <- picked" if plan == chosen else ""
+            print(f"[plans]   {ms:.4f} ms model {model / 1980:.2f} us err {err:.2e}"
+                  f"{'' if ok else ' WRONG'} threads {plan.threads} tc {plan.tile_cols} "
+                  f"splits {plan.n_splits} stage {plan.stage_groups}x{plan.nbuf} "
+                  f"grid {plan.grid}{tag}")
+        best = min(rows, key=lambda r: r[0])
+        picked = next(r for r in rows if r[4] == chosen)
+        print(f"[plans] {label}: fastest {best[0]:.4f} ms ({best[4]}), picked {picked[0]:.4f} ms")
+        check(all(r[3] for r in rows), f"{label}: a plan disagrees with plain")
+        del packed, codes_t, lut, want
 
 
 def truncating_fold(cfg, x, s):
@@ -775,19 +917,23 @@ def truncating_folds():
         dq.fold_activations_i8 = saved
 
 
-def launched_kernels(fn):
-    """The CUDA kernels one warm ``fn()`` launches (torch.profiler): {name:
-    count}, without the fills of ``--guard``'s bands."""
+def launched_kernels(fn, calls=5):
+    """The CUDA kernels one warm ``fn()`` launches (torch.profiler, the
+    counts of ``calls`` calls over ``calls``, rounded: a kernel event the
+    profiler drops does not change them): {name: count}, without the fills
+    of ``--guard``'s bands."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
+    counts = {e.key: round(e.count / calls) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
+    return {k: c for k, c in counts.items() if c}
 
 
 def phase_tiers(device):
@@ -863,6 +1009,7 @@ def phase_tiers(device):
         lut = build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16)
         args = (lut, packed.codes_t, packed.scales, packed.d_out)
         got, pair, want = lg.lut_lookup_pairf(*args), lg.lut_lookup(*args), lg.lut_lookup_plain(*args)
+        again = lg.lut_lookup_pairf(*args)
         y = lg.lut_gemv(cfg, packed, x, variant="pairf")
         y_pair = lg.lut_gemv(cfg, packed, x, variant="pair")
         torch.cuda.synchronize()
@@ -870,6 +1017,9 @@ def phase_tiers(device):
         rows["lut_gemv_pairf"].append(with_bound(dict(
             shape=f"{d_in}x{d_out} B=1", rel=rel_err(got, want),
             equal=bool(torch.equal(got, pair)) and bool(torch.equal(y, y_pair)),
+            calls_equal=bool(torch.equal(got, again)),
+            call_kernels=launched_kernels(lambda: lg.lut_lookup_pairf(*args)),
+            floor_ms=lookup_floor_ms(cfg.n_groups * packed.codes_t.shape[1] * 4),
             abs=float((got - want).abs().max()),
             control=rel_err(lg.lut_lookup_plain(*args, round_bf16=False), want),
             **kernel_times(lambda: lg.lut_lookup_pairf(*args),
@@ -898,7 +1048,10 @@ def phase_tiers(device):
                 extra += f"  two calls bit-equal {r['equal']}"
             if name == "fold_i8":
                 extra += f"  xs equal, padding zero {r['equal']}"
-            if "calls_equal" in r:
+            if "calls_equal" in r and name == "lut_gemv_pairf":
+                extra += (f"  two calls bit-equal {r['calls_equal']}" + floor_text(r["floor_ms"])
+                          + one_kernel_text(r))
+            elif "calls_equal" in r:
                 n_call = sum(r["call_kernels"].values())
                 extra += (f"  two calls bit-equal {r['calls_equal']}  whole call launches "
                           f"{n_call} kernels: " + ", ".join(
@@ -910,7 +1063,9 @@ def phase_tiers(device):
             check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
             check(r.get("equal", True), f"{name} {r['shape']}: not equal to its reference")
             check(r.get("calls_equal", True), f"{name} {r['shape']}: two calls differ")
-            if "call_kernels" in r:
+            if name == "lut_gemv_pairf":
+                check_one_kernel(name, r)
+            elif "call_kernels" in r:
                 ks = r["call_kernels"]
                 check(sum(ks.values()) == 2 and any("fold_i8" in k for k in ks)
                       and any("dequant_mm_i8" in k for k in ks),
@@ -1661,6 +1816,7 @@ def phase_profile(device, cfg, weights):
     print(f"[profile] B={N_SLOTS} decode step at window {window}, ms per step: "
           + ", ".join(f"{a} " + " / ".join(f"{t:.1f}" for t in ts) for a, ts in step_ms.items()))
     del b
+    decode_step_launches(cfg, weights)
     req = slice_requests(cfg)["a"]
     generate(cfg, weights, req["prompts"], 2)  # warm-up
     rates = []
@@ -1670,6 +1826,93 @@ def phase_profile(device, cfg, weights):
         rates.append(len(req["prompts"]) * (req["new"] - 1) / (total_s - prefill_s))
     print(f"[profile] phase 3 (a) B={len(req['prompts'])} decode: "
           + " / ".join(f"{r:.1f}" for r in rates) + " tok/s (host clock)")
+
+
+def decode_step_launches(cfg, weights):
+    """Phase 3 (b)'s request (B=1, 16 new tokens): the device launches of a
+    decode step, by the profiler's kernel counts of a whole ``generate()``
+    less those of a prefill-only one, over the steps between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_lutvq_torch.runtime import generate
+
+    req = slice_requests(cfg)["b"]
+    generate(cfg, weights, req["prompts"], 2)  # warm-up: lazy inits
+    counts = {}
+    for n in (1, req["new"]):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            generate(cfg, weights, req["prompts"], n)
+            torch.cuda.synchronize()
+        counts[n] = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    per_step = (counts[req["new"]] - counts[1]) / (req["new"] - 1)
+    print(f"[steps] phase 3 (b) B=1: {per_step:.1f} device launches a decode step "
+          f"(generate of {req['new']} tokens {counts[req['new']]}, of 1 {counts[1]})")
+    return per_step
+
+
+def phase_lookups(device):
+    """``--lookups``: A and M at phase 2's projection shapes, K, H and I at
+    its scans and a 4096² projection, each call's device time (profiler),
+    the kernels it launches and its error against the plain version (equal
+    for H and I); then phase 3 (b)'s launches a decode step and phase 5.  It
+    calls the wrappers alone, so copied into an earlier tree's checkout it
+    measures that tree the same way: one call can run parent, change,
+    change, parent."""
+    from tpu_lutvq_torch import VQConfig, VQParams, aqlm_2x8, init_vq_params
+    from tpu_lutvq_torch.kernels.lut_ctor import build_lut
+
+    lg, _ = kernel_modules()
+    gen = torch.Generator(device).manual_seed(1234)
+
+    def row(label, fn, want, exact):
+        got = fn()
+        torch.cuda.synchronize()
+        err = 0.0 if torch.equal(got, want) else rel_err(got, want)
+        ks = launched_kernels(fn)
+        print(f"[lookups] {label}: device {device_ms(fn, calls=20):.4f} ms, "
+              f"{sum(ks.values())} kernels a call, err {err:.3e}")
+        check(err == 0.0 if exact else err <= 1e-5, f"{label} disagrees with plain: {err}")
+
+    for d_in, d_out in SHAPES:
+        cfg = aqlm_2x8(d_in, shared_codebook=True)
+        packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
+        x = torch.randn((1, d_in), generator=gen, device=device)
+        args = (build_lut(cfg, packed.codebook, x, compute_dtype=torch.bfloat16),
+                packed.codes_t, packed.scales, packed.d_out)
+        want = lg.lut_lookup_plain(*args)
+        row(f"A {d_in}x{d_out} B=1", lambda: lg.lut_lookup(*args), want, False)
+        row(f"M {d_in}x{d_out} B=1", lambda: lg.lut_lookup_pairf(*args), want, False)
+        del packed
+    cases = [(b, g, k, n) for (b, g, k), ns in TABLE_SCANS.items() for n in ns
+             if n != "lut_gemv_bpair"]
+    cases += [(b, 1024, 256, n) for b in (1, 8) for n in ("lut_gemv_f32", "lut_gemv_i8",
+                                                          "lut_gemv_i16")]
+    for b, g, k, name in cases:
+        width = ANN_N if g < 1024 else 4096
+        cfg = VQConfig(8 * g, g, 1, k)
+        codes = torch.randint(0, k, (width, g, 1), generator=gen, device=device,
+                              dtype=torch.int32).to(torch.uint8)
+        packed = lg.pack_params(cfg, VQParams(torch.zeros((1, 1, 1, 1), device=device), codes))
+        del codes
+        lut = 100 * torch.rand((b, g, k), generator=gen, device=device)
+        v = TABLE_VARIANTS[name]
+        if v != "f32":
+            quantize = lg.quantize_lut_int8 if v == "i8" else lg.quantize_lut_int16
+            lut = quantize(lut, axis=(1, 2))[0]
+            want = lg.lut_lookup_int_plain(lut, packed.codes_t, packed.scales, width)
+        else:
+            want = lg.lut_lookup_plain(lut, packed.codes_t, packed.scales, width,
+                                       round_bf16=False)
+        row(f"{name} B={b} G={g} K={k} n={width}",
+            lambda: lg.lut_lookup_table(lut, packed.codes_t, packed.scales, width), want,
+            v != "f32")
+        del packed, lut, want
+    cfg, weights = model(device)
+    decode_step_launches(cfg, weights)
+    del weights
+    torch.cuda.empty_cache()
+    phase_ann(device)
 
 
 def ann_data(device):
@@ -2193,7 +2436,7 @@ def out_group_checks(device, cfg, weights, tensors, og):
 
 KERNELS = {
     "lut_gemv": dict(
-        route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:344",
     ),
     "lut_gemv_bpair": dict(
@@ -2247,7 +2490,7 @@ KERNELS = {
         also_replaces=["tpu_lutvq/kernels/dequant_mm.py:449"],
     ),
     "lut_gemv_pairf": dict(
-        route="cuda", source="tpu_lutvq_torch/csrc/lut_gemv.cu",
+        route="cuda", source="tpu_lutvq_torch/csrc/lut_scan.cu",
         replaces="tpu_lutvq/kernels/lut_gemv.py:309",
     ),
     "lut_gemv_nibbles": dict(
@@ -2360,7 +2603,7 @@ def main(mode=None):
 
     phase_device()
     device = torch.device("cuda")
-    phase_build(strict=mode != "--profile")
+    phase_build(strict=mode not in ("--profile", "--plans", "--lookups"))
     if mode == "--profile":
         phase_profile(device, *model(device))
         return
@@ -2369,6 +2612,12 @@ def main(mode=None):
         return
     if mode == "--spread":
         phase_gate_spread(device)
+        return
+    if mode == "--plans":
+        phase_plans(device)
+        return
+    if mode == "--lookups":
+        phase_lookups(device)
         return
     rows = run_phase("phase 2 projections", phase_kernels, device)
     rows.update(run_phase("phase 2 attention", phase_attention, device))
@@ -2409,7 +2658,9 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    if sys.argv[1:] not in ([], ["--profile"], ["--guard"], ["--spread"]):
-        print("usage: chip_smoke.py [--profile | --guard | --spread]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--profile"], ["--guard"], ["--spread"], ["--plans"],
+                            ["--lookups"]):
+        print("usage: chip_smoke.py [--profile | --guard | --spread | --plans | --lookups]",
+              file=sys.stderr)
         sys.exit(2)
     main(*sys.argv[1:])

@@ -3,7 +3,7 @@
 //
 // Replaces tpu_lutvq/kernels/lut_gemv.py::_gemv_kernel_bpair (:376):
 //     y[b, j] = s[j] * sum_g bf16(lut[b, g, codes_t[g, j]])     (f32 sum)
-// (A and M, the one-token pair kernels, stay in lut_gemv.cu.)
+// (A and M, the one-token pair kernels, are lut_scan.cu's kind 0.)
 //
 // What bounds it on the H100.  The codes, G * d_out bytes (4 MiB at 4096 x
 // 4096, 1.3 us at 3.35 TB/s), and the f32 tables, B * G * Kp * 4 bytes (8

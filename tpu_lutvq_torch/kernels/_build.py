@@ -56,10 +56,10 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lutvq_lut_gemv.argtypes = [vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
-    lib.lutvq_lut_gemv.restype = i32
-    lib.lutvq_lut_scan.argtypes = [i32] + [vp] * 5 + [i32] * 10 + [vp]
+    lib.lutvq_lut_scan.argtypes = [i32] + [vp] * 4 + [i32] * 13 + [vp]
     lib.lutvq_lut_scan.restype = i32
+    lib.lutvq_lut_scan_clusters.argtypes = [i32] * 8
+    lib.lutvq_lut_scan_clusters.restype = i32
     lib.lutvq_lut_nibbles_bf16.argtypes = [vp] * 4 + [i32] * 9 + [vp]
     lib.lutvq_lut_nibbles_bf16.restype = i32
     lib.lutvq_lut_nibbles_bf16_clusters.argtypes = [i32] * 4

@@ -5,19 +5,22 @@ flavours of table, each a hand-written CUDA kernel for 1 to
 ``MAX_LUT_BATCH`` tokens per launch (larger batches are chunked):
 
 - ``pair``/``bpair`` (B=1 / B≥2): bf16 entries, f32 sum, wrapper
-  :func:`lut_lookup` — ``pair`` in ``csrc/lut_gemv.cu`` (counter
+  :func:`lut_lookup` — ``pair`` in ``csrc/lut_scan.cu`` (kind 0: one
+  token's f32 table rounded to bf16 as the kernel stages it, its groups
+  split over a thread-block cluster as :func:`plan_pair` says; counter
   ``LUT_GEMV_LAUNCHES``), ``bpair`` in ``csrc/lut_bpair.cu``, which rounds
   the f32 tables to bf16 as it stages them and splits the groups over a
   thread-block cluster as :func:`plan_bpair` says (counter
   ``LUT_GEMV_BPAIR_LAUNCHES``);
-- ``pairf`` (B=1): ``pair`` with the f32 table rounded to bf16 inside the
-  kernel — the same source, wrapper :func:`lut_lookup_pairf`, counter
+- ``pairf`` (B=1): ``pair``'s function from the f32 table — the same
+  kernel, wrapper :func:`lut_lookup_pairf`, counter
   ``LUT_GEMV_PAIRF_LAUNCHES``;
-- ``f32``: f32 entries, f32 sum — ``csrc/lut_scan.cu``, wrapper
+- ``f32``: f32 entries, f32 sum — ``csrc/lut_scan.cu`` (kind 1), wrapper
   :func:`lut_lookup_table`, counter ``LUT_GEMV_F32_LAUNCHES``;
 - ``i8``/``i16``: per-token range-quantized int8/int16 entries, exact
-  integer sum, then the token's table scale — the same source and wrapper,
-  counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``;
+  integer sum, then the token's table scale — the same source (kinds 2, 3)
+  and wrapper, counters ``LUT_GEMV_I8_LAUNCHES``/``LUT_GEMV_I16_LAUNCHES``;
+  the table kernels' splits are :func:`plan_scan`'s;
 - ``nibbles``/``nibbles_bpair`` (B=1 / B≥2), the only variants of a
   nibble-packed (T-MAC, K=16) pack: two groups' 4-bit codes a byte, one
   token's f32 table (J1) or 2-8 tokens' bf16 tables (J2), f32 sum — one
@@ -68,7 +71,6 @@ LUT_GEMV_NIBBLES_LAUNCHES = 0  # nibble codes, f32 tables (J1)
 LUT_GEMV_NIBBLES_BPAIR_LAUNCHES = 0  # nibble codes, bf16 tables (J2)
 
 _TOKEN_TILES = (1, 2, 4, 8)
-_TILE_COLS = 512  # output columns per CUDA block (csrc/lut_gemv.cu kTileCols)
 # csrc/lut_bpair.cu (B): columns × row groups a block spans (256 threads of
 # 4 columns), column tiles a block may take, blocks a cluster may hold
 # (above 8 where the card allows it), table entries (groups × Kp × a
@@ -87,15 +89,40 @@ _BPAIR_MAX_PER_THREAD = 8
 _BPAIR_SMEM_BPC = 128 / 3.5
 _BPAIR_ROUND_CLK = 200
 _BPAIR_L2_BPC = 2560
-_SCAN_TILE_COLS = 1024  # csrc/lut_scan.cu kTileCols
-_SCAN_STAGE_BYTES = 128 * 1024  # staged table slice per block (f32 G=16 K=256 B=8)
-_SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory, 1 KiB of it per block reserved
+# csrc/lut_scan.cu (A, M, K, H, I): block sizes, column tiles a block may
+# take, blocks a cluster may hold (above 8 where the card allows it), a
+# block's shared memory
+SCAN_THREADS = (256, 512)
+SCAN_TILE_COLS = (128, 256, 512, 1024, 2048)
+SCAN_MAX_SPLITS = 16
+_SCAN_SMEM_MAX = 227 * 1024
+# kernel kind by entries: 0 one token's f32 table rounded to bf16 (A, M), 1
+# f32 (K), 2 int8 (H), 3 int16 (I); its entry bytes and a lane's columns
+SCAN_PAIR = 0
+_SCAN_ENTRY_BYTES = {0: 4, 1: 4, 2: 1, 3: 2}
+_SCAN_LANE_COLS = {0: 16, 1: 16, 2: 8, 3: 8}
+# plan_scan's cost model, in clocks of one SM, fit to chip_smoke.py
+# --plans on an H100 (every candidate plan timed at the main paths'
+# shapes): a warp's 4-byte shared-memory load of random K = 256 codes meets
+# _SCAN_CONFLICT[words a row] distinct words on its busiest bank (Monte
+# Carlo; 32 / words rows a load), each costing _SCAN_WAVE_CLK; a block has a
+# fixed cost, a cost a column tile, and stages its tables through its SM at
+# _SCAN_SM_L2_BPC bytes a clock; the tables cross the L2 at _SCAN_L2_BPC in
+# all, codes and outputs HBM at _SCAN_HBM_BPC (3.35 TB/s at 1980 MHz)
+_SCAN_CONFLICT = {1: 3.15, 2: 2.92, 4: 2.54, 8: 2.11}
+_SCAN_WAVE_CLK = 0.75
+_SCAN_BLOCK_CLK = 1000
+_SCAN_TILE_CLK = 1500
+_SCAN_SM_L2_BPC = 64
+_SCAN_L2_BPC = 800
+_SCAN_HBM_BPC = 1692
+_SCAN_SM_SMEM = 228 * 1024  # an SM's shared memory, 1 KiB of it per block reserved
 NIBBLE_K = 16  # table entries a group has under 4-bit codes
 # entry type → (kernel kind in csrc/lut_scan.cu, its counter)
 _SCAN_KINDS = {
-    torch.float32: (0, "LUT_GEMV_F32_LAUNCHES"),
-    torch.int8: (1, "LUT_GEMV_I8_LAUNCHES"),
-    torch.int16: (2, "LUT_GEMV_I16_LAUNCHES"),
+    torch.float32: (1, "LUT_GEMV_F32_LAUNCHES"),
+    torch.int8: (2, "LUT_GEMV_I8_LAUNCHES"),
+    torch.int16: (3, "LUT_GEMV_I16_LAUNCHES"),
 }
 # csrc/lut_nibbles.cu (J1, J2): column tiles a block may take, blocks a
 # cluster may hold (the portable cluster size), the table bytes staged at a
@@ -318,76 +345,229 @@ def lut_lookup_pairf(
     return _launch_pairf(lut, codes_t, scales, d_out)
 
 
-def _prepare(lut, codes_t, scales, d_out, tile_cols, name):
-    """What the lookup kernels check and take: the table in (G, Kp, token)
-    layout, tokens padded to the kernel's tile, so that one load fetches
-    every token's entry; and the groups split until column tiles × splits
-    fill the card twice over.  Returns (table, token tile, SMs, column
-    tiles, groups per split, splits)."""
-    b, g, kp = lut.shape
-    g_pad, d_out_pad = codes_t.shape
-    kps = (LANE, 2 * LANE)
-    if b > MAX_LUT_BATCH:
-        raise ValueError(f"{name} kernel takes ≤ {MAX_LUT_BATCH} tokens, got {b}")
-    if kp not in kps:
-        raise ValueError(f"{name} kernel takes Kp in {kps}, got {kp}")
-    if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
-        raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
-    bp = next(t for t in _TOKEN_TILES if t >= b)
-    tab = lut.permute(1, 2, 0)  # at B=1 already (G, Kp, 1) in memory: no copy
-    if bp > b:
-        tab = F.pad(tab, (0, bp - b))
-    tab = tab.contiguous()
-    _build.require_cuda_tensor(tab, "lut", lut.dtype)
-    _build.require_cuda_tensor(codes_t, "codes_t", torch.uint8)
-    if scales is not None:
-        _build.require_cuda_tensor(scales, "scales", torch.float32)
-    n_tiles = -(-d_out_pad // tile_cols)
-    sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
-    g_per_split = max(16, math.ceil(g / max(1, math.ceil(2 * sms / n_tiles))))
-    return tab, bp, sms, n_tiles, g_per_split, -(-g // g_per_split)
-
-
 def _launch(lut, codes_t, scales, d_out):
-    """One token's table: A (``csrc/lut_gemv.cu``); 2-8 tokens': B
-    (``csrc/lut_bpair.cu``)."""
+    """One token's table: A (``csrc/lut_scan.cu`` kind 0, build_lut's f32
+    table as it is, rounded to bf16 in the kernel — a bf16 table is widened
+    first, exactly); 2-8 tokens': B (``csrc/lut_bpair.cu``)."""
     global LUT_GEMV_LAUNCHES
     if lut.shape[0] > 1:
         return _launch_bpair(lut, codes_t, scales, d_out)
-    # bf16: the rounding point of the JAX pair packers
-    out = _run_lut_gemv(lut.to(torch.bfloat16), codes_t, scales, d_out)
+    out = _run_scan(SCAN_PAIR, lut.float(), codes_t, scales, d_out, "lut_gemv")
     LUT_GEMV_LAUNCHES += 1
     return out
 
 
 def _launch_pairf(lut, codes_t, scales, d_out):
+    """``pairf``: A's kernel on one token's f32 table."""
     global LUT_GEMV_PAIRF_LAUNCHES
     if lut.shape[0] != 1 or lut.dtype != torch.float32:
         raise ValueError(f"pairf kernel takes one token's f32 table, got "
                          f"{tuple(lut.shape)} {lut.dtype}")
-    out = _run_lut_gemv(lut, codes_t, scales, d_out)
+    out = _run_scan(SCAN_PAIR, lut, codes_t, scales, d_out, "lut_gemv_pairf")
     LUT_GEMV_PAIRF_LAUNCHES += 1
     return out
 
 
-def _run_lut_gemv(lut, codes_t, scales, d_out):
-    """``csrc/lut_gemv.cu`` over one token's bf16 table, or an f32 one
-    (``pairf``) that the kernel rounds to bf16 as it stages it."""
+def scan_layout(kind: int, bp: int) -> tuple:
+    """``csrc/lut_scan.cu``'s (kind, ``bp`` token slots) instance: (entry
+    bytes, tokens a 4-byte word, words a staged (group, k) row — the lanes
+    that share a column chunk —, columns a lane takes, (group, 4 k) items a
+    thread stages a round: up to 64 bytes of entries, at most 4, at least
+    one)."""
+    es = _SCAN_ENTRY_BYTES[kind]
+    lanes = bp * es // 4 if bp * es > 4 else 1
+    return es, 4 // es, lanes, _SCAN_LANE_COLS[kind], min(4, max(1, 16 // (es * bp)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How ``csrc/lut_scan.cu`` covers ``groups`` groups × the padded width
+    for its ``kind`` and ``bp`` token slots: blocks of ``threads``, ``grid`` =
+    (blocks along the columns, ``n_splits``).  With one split a block walks
+    column tiles of ``tile_cols`` with a grid stride; with more, each block
+    takes one tile and a tile's splits form one cluster.  Split ``q`` takes
+    ``slice_groups`` groups from ``q * slice_groups`` in rounds of
+    ``stage_groups`` (a multiple of the row groups), staged into ``nbuf``
+    buffers: all rounds at once when they fit (the tables then stay staged
+    from tile to tile)."""
+
+    kind: int
+    bp: int
+    threads: int
+    tile_cols: int
+    n_splits: int
+    slice_groups: int
+    stage_groups: int
+    nbuf: int
+    grid: tuple
+
+    @property
+    def row_groups(self) -> int:
+        """Thread groups of a block that interleave its rounds' groups."""
+        _, _, lanes, cols, _ = scan_layout(self.kind, self.bp)
+        return self.threads // (lanes * self.tile_cols // cols)
+
+    def tiles(self, d_out_pad: int) -> list:
+        """Column tiles of each block along the grid's first axis."""
+        n = -(-d_out_pad // self.tile_cols)
+        return [list(range(x, n, self.grid[0])) for x in range(self.grid[0])]
+
+    def split_groups(self, groups: int) -> list:
+        return [range(min(groups, q * self.slice_groups),
+                      min(groups, (q + 1) * self.slice_groups)) for q in range(self.n_splits)]
+
+    def rounds(self, split: range) -> list:
+        return [range(s, min(split.stop, s + self.stage_groups))
+                for s in range(split.start, split.stop, self.stage_groups)]
+
+    def smem_bytes(self, kp: int) -> int:
+        """The kernel's shared memory (``Smem`` in the source): the tables'
+        round buffers, two rounds' codes, the row groups' partials, the
+        cluster's inbox."""
+        _, slots, lanes, _, _ = scan_layout(self.kind, self.bp)
+        tokens = lanes * slots
+        red = (self.row_groups > 1 or self.n_splits > 1) * self.row_groups * tokens * self.tile_cols
+        inbox = (self.n_splits > 1) * (tokens * self.tile_cols + SCAN_MAX_SPLITS)
+        codes = 2 * self.stage_groups * self.tile_cols
+        return self.nbuf * self.stage_groups * kp * lanes * 4 + codes + 4 * (red + inbox)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_scan(kind: int, bp: int, groups: int, d_out_pad: int, kp: int, sms: int,
+              fits=None) -> ScanPlan:
+    """The split of ``groups`` groups (tables of ``kp`` entries) over
+    ``d_out_pad`` columns for ``csrc/lut_scan.cu``'s ``kind`` at ``bp``
+    token slots on a card of ``sms`` SMs: of :func:`scan_candidates`, the
+    one of least modelled time.  Pure."""
+    return min(scan_candidates(kind, bp, groups, d_out_pad, kp, sms, fits),
+               key=lambda c: c[0])[1]
+
+
+def scan_candidates(kind: int, bp: int, groups: int, d_out_pad: int, kp: int, sms: int,
+                    fits=None) -> list:
+    """Every (block size, column tile, splits ≤ SCAN_MAX_SPLITS, rounds)
+    plan that fits, with its sort key: the larger of waves × a block's time
+    (a fixed cost, its tables through its SM, its lookups at the bank
+    conflicts of random codes, shared with the blocks on its SM, its
+    epilogue), the tables' traffic through the L2 (once per column tile, or
+    per block where they stay staged) and the codes' and outputs' through
+    HBM, in clocks of one SM; then the clocks before the HBM floor, the
+    splits and the block size.  ``fits(kind, bp, kp, threads, tile_cols,
+    n_splits, stage_groups, nbuf)`` is how many such clusters (with one
+    split, blocks) the card holds at once (the wrapper asks the card; by
+    default as registers, threads and shared memory allow on ``sms`` SMs);
+    a cluster that does not fit waits for a second wave.  No split is left
+    empty.  [(key, plan)]."""
+    es, _, lanes, cols, items = scan_layout(kind, bp)
+    table = groups * kp * bp * es
+    hbm = (groups * d_out_pad + table + d_out_pad * bp * 4) / _SCAN_HBM_BPC
+    out = []
+    for threads in SCAN_THREADS:
+        for tc in SCAN_TILE_COLS:
+            per_rg = lanes * tc // cols  # threads of one row group
+            if per_rg > threads or threads % per_rg:
+                continue
+            rg = threads // per_rg
+            max_stage = threads * items * 4 // kp // rg * rg  # rounds of whole row groups
+            if max_stage < rg:
+                continue
+            tiles = -(-d_out_pad // tc)
+            for ns in range(1, SCAN_MAX_SPLITS + 1):
+                slice_groups = -(-groups // ns)
+                if slice_groups * (ns - 1) >= groups:
+                    continue
+                stage = min(max_stage, _round_up(slice_groups, rg))
+                n_rounds = -(-slice_groups // stage)
+                for nbuf in dict.fromkeys((n_rounds, min(2, n_rounds))):  # staged once, or a ring
+                    plan = ScanPlan(kind, bp, threads, tc, ns, slice_groups, stage, nbuf,
+                                    (tiles, ns))
+                    if plan.smem_bytes(kp) <= _SCAN_SMEM_MAX:
+                        break
+                else:
+                    continue
+                if fits is None:
+                    per_sm = min(2048 // threads, 65536 // (128 * threads),
+                                 _SCAN_SM_SMEM // (plan.smem_bytes(kp) + 1024))
+                    slots = sms * per_sm // ns
+                else:
+                    slots = fits(kind, bp, kp, threads, tc, ns, stage, plan.nbuf)
+                if slots < 1:
+                    continue
+                if ns == 1:
+                    plan = dataclasses.replace(plan, grid=(min(tiles, slots), 1))
+                cost = _scan_cost(plan, tiles, slots, table, sms, n_rounds)
+                out.append(((max(cost, hbm), cost, ns, threads), plan))
+    return out
+
+
+def _scan_cost(plan: ScanPlan, tiles: int, slots: int, table: int, sms: int,
+               n_rounds: int) -> float:
+    """plan_scan's clocks for a plan, before the HBM floor: waves × a
+    block's time, or the tables' L2 traffic."""
+    _, _, lanes, _, _ = scan_layout(plan.kind, plan.bp)
+    ns = plan.n_splits
+    resident = plan.nbuf == n_rounds
+    if ns > 1:
+        blocks, waves, block_tiles = tiles * ns, -(-tiles // slots), 1
+    else:
+        blocks, waves = plan.grid[0], 1
+        block_tiles = -(-tiles // blocks)
+    waves_clk = plan.slice_groups * plan.tile_cols * lanes / 32 * _SCAN_CONFLICT[lanes]
+    share = max(1.0, blocks / waves / sms)  # blocks an SM runs at once
+    staged = table / ns * (1 if resident else block_tiles)
+    block = _SCAN_BLOCK_CLK + staged / _SCAN_SM_L2_BPC + block_tiles * (
+        waves_clk * _SCAN_WAVE_CLK * share + _SCAN_TILE_CLK)
+    l2 = (blocks if resident and ns == 1 else tiles) * table / _SCAN_L2_BPC
+    return max(waves * block, l2)
+
+
+def plan_pair(groups: int, d_out_pad: int, kp: int, sms: int, fits=None) -> ScanPlan:
+    """A's and M's split (one token's table, rounded to bf16 as staged):
+    :func:`plan_scan` at kind 0."""
+    return plan_scan(SCAN_PAIR, 1, groups, d_out_pad, kp, sms, fits)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_fits(kind: int, bp: int, kp: int, threads: int, tile_cols: int, n_splits: int,
+               stage_groups: int, nbuf: int) -> int:
+    """Clusters (with one split, blocks) of a scan plan the card holds at
+    once (the CUDA occupancy query); 0 when one cannot launch."""
+    n = _build.library().lutvq_lut_scan_clusters(kind, bp, kp, threads, tile_cols, n_splits,
+                                                  stage_groups, nbuf)
+    return max(n, 0)
+
+
+def _run_scan(kind, lut, codes_t, scales, d_out, name, plan=None):
+    """``csrc/lut_scan.cu`` over the (B, G, Kp) tables as they are — f32
+    (kinds 0, 1), int8 or int16 — in one launch, as :func:`plan_scan`
+    splits it (or as ``plan`` does: a sweep of the candidates)."""
     b, g, kp = lut.shape
-    d_out_pad = codes_t.shape[1]
-    tab, bp, _, _, g_per_split, n_splits = _prepare(
-        lut, codes_t, scales, d_out, _TILE_COLS, "lut_gemv")
-    ws = torch.empty((n_splits, bp, d_out_pad), dtype=torch.float32, device=lut.device)
+    g_pad, d_out_pad = codes_t.shape
+    kps = (LANE, 2 * LANE)
+    tokens = 1 if kind == SCAN_PAIR else MAX_LUT_BATCH
+    if not 1 <= b <= tokens:
+        raise ValueError(f"{name} kernel takes 1-{tokens} tokens' tables, got {b}")
+    if kp not in kps:
+        raise ValueError(f"{name} kernel takes Kp in {kps}, got {kp}")
+    if g > g_pad or d_out > d_out_pad or d_out_pad % LANE:
+        raise ValueError(f"codes_t {tuple(codes_t.shape)} does not cover G={g}, d_out={d_out}")
+    tab = lut.contiguous()  # build_lut's and the quantizers' tables already are: no copy
+    for t, what, dtype in ((tab, "lut", lut.dtype), (codes_t, "codes_t", torch.uint8)):
+        _build.require_cuda_tensor(t, what, dtype)
+    if scales is not None:
+        _build.require_cuda_tensor(scales, "scales", torch.float32)
+    bp = next(t for t in _TOKEN_TILES if t >= b)
+    if plan is None:
+        plan = plan_scan(kind, bp, g, d_out_pad, kp, _sms(lut.device), _scan_fits)
     out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
     lib = _build.library()
-    err = lib.lutvq_lut_gemv(
-        tab.data_ptr(), codes_t.data_ptr(),
-        None if scales is None else scales.data_ptr(),
-        ws.data_ptr(), out.data_ptr(),
-        b, bp, g, kp, d_out, d_out_pad, g_per_split, n_splits,
-        int(lut.dtype == torch.float32), _build.stream_ptr(lut),
+    err = lib.lutvq_lut_scan(
+        kind, tab.data_ptr(), codes_t.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), b, bp, g, kp, d_out, d_out_pad, plan.threads, plan.tile_cols,
+        plan.n_splits, plan.slice_groups, plan.stage_groups, plan.nbuf, plan.grid[0],
+        _build.stream_ptr(lut),
     )
-    _build.check(lib, err, "lut_gemv")
+    _build.check(lib, err, name)
     return out
 
 
@@ -748,30 +928,7 @@ def _launch_table(lut, codes_t, scales, d_out):
     if lut.dtype not in _SCAN_KINDS:
         raise ValueError(f"lut_scan kernel takes f32, int8 or int16 tables, got {lut.dtype}")
     kind, counter = _SCAN_KINDS[lut.dtype]
-    b, g, kp = lut.shape
-    d_out_pad = codes_t.shape[1]
-    tab, bp, sms, n_tiles, g_per_split, n_splits = _prepare(
-        lut, codes_t, scales, d_out, _SCAN_TILE_COLS, "lut_scan")
-    # the whole G-slice staged once when it fits; blocks per SM as many as
-    # the shared memory holds, and no more than there are column tiles
-    row_bytes = kp * bp * tab.element_size()
-    stage_groups = min(g_per_split, _SCAN_STAGE_BYTES // row_bytes)
-    per_sm = max(1, min(8, _SM_SHARED_BYTES // (stage_groups * row_bytes + 1024)))
-    grid_x = min(n_tiles, per_sm * sms)
-    ws = None
-    if n_splits > 1:
-        acc = torch.int32 if lut.dtype in (torch.int8, torch.int16) else torch.float32
-        ws = torch.empty((n_splits, bp, d_out_pad), dtype=acc, device=lut.device)
-    out = torch.empty((b, d_out), dtype=torch.float32, device=lut.device)
-    lib = _build.library()
-    err = lib.lutvq_lut_scan(
-        kind, tab.data_ptr(), codes_t.data_ptr(),
-        None if scales is None else scales.data_ptr(),
-        None if ws is None else ws.data_ptr(), out.data_ptr(),
-        b, bp, g, kp, d_out, d_out_pad, g_per_split, n_splits, stage_groups,
-        grid_x, _build.stream_ptr(lut),
-    )
-    _build.check(lib, err, "lut_scan")
+    out = _run_scan(kind, lut, codes_t, scales, d_out, "lut_scan")
     globals()[counter] += 1
     return out
 
