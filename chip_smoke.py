@@ -37,7 +37,13 @@ Phases, one result line each; any failure raises and exits non-zero:
      outputs from two calls; the T-MAC W4 nibble lookups (J1 at one token's f32
      table, one kernel a call by the profiler, J2 at 2, 8 and 16 tokens' bf16
      tables, each with its shared-memory lookup floor) at the 7B projection
-     shapes and 4096 -> 28672.  Wrong-rounding
+     shapes and 4096 -> 28672; then the routes: at the Llama-2-7B projection
+     shapes and 1/2/4/8 rows every exact-tier strategy's whole
+     ``QuantizedLinear.apply`` call on the device, the route
+     ``pick_strategy`` takes within 10 % of the fastest, beside
+     ``layer_report``'s predicted time; and the native host library
+     (``csrc/lutvq_pack.cpp``, built with g++) bit-equal to its numpy
+     branches at 7B width.  Wrong-rounding
      controls must fail each kernel's tolerance (the int8 and int16 lookups
      and the W8A8 matmul and fold must equal their plain versions, ``pairf``
      the ``pair`` kernel; truncating instead of rounding must not).  Each row
@@ -46,8 +52,10 @@ Phases, one result line each; any failure raises and exits non-zero:
      operations);
   3. slice: a Llama-2-7B-geometry AQLM-2x8 model (random weights, seed 0)
      serves (a) a ragged batch of 4 prompts for 32 new tokens and (b) one
-     16-token prompt for 16 new tokens through ``generate()``; both kernels
-     must launch in each request, outputs must be well formed, and the
+     16-token prompt for 16 new tokens through ``generate()``, and (c) (b)'s
+     prompt through the lookups (``strategy="lut_gemv"``); each request
+     must launch the kernels its routes take (``pick_strategy``'s, or the
+     asked strategy's) and no other, outputs must be well formed, and the
      prefill and first decode-step logits must match a plain-version re-run
      within a tolerance that the plain-vs-plain noise (the plain versions
      with reordered f32 sums) stays under;
@@ -56,7 +64,8 @@ Phases, one result line each; any failure raises and exits non-zero:
      cache, ``attn="auto"``; (ii) paged pool, blocks of 256; (iii) slab,
      ``attn="flash"``, chunked admission of two ~700-token prompts,
      ``run(horizon=4, pipeline=True)``.  Each run must launch its attention
-     kernels, (ii) must give (i)'s tokens, and a B=8 flash decode step from
+     kernels (as ``resolve_attn`` picks them) and its decode rows' routes,
+     (ii) must give (i)'s tokens, and a B=8 flash decode step from
      (i)'s caches must match the plain versions' step as in phase 3, where
      the attention controls must fail too;
   5. ann: FAISS's IndexPQ(128, 16, 8) on SIFT1M's size (benchs/
@@ -71,7 +80,8 @@ Phases, one result line each; any failure raises and exits non-zero:
      search must return the exact f32-table top-100;
   6. tiers (run after phase 4, on its model): (a) batcher run (iv), run
      (i)'s 16 requests at ``quality="fast"``: the W8A8 kernel and its fold
-     must launch at every 8-row decode tick and the bf16x2 one never, and a B=8 step from
+     must launch at every 8-row decode tick for each projection routed to
+     the dequant-matmul, and the bf16x2 one never, and a B=8 step from
      its caches must match the plain versions' fast step as in phase 4; (b)
      one B=1 decode step with ``variant="pairf"``, 224 ``pairf`` launches,
      logits equal to the ``pair`` step's; (c) ``sequence_logprobs`` of 4 × 256
@@ -84,7 +94,7 @@ Phases, one result line each; any failure raises and exits non-zero:
      model;
   8. checkpoint: (a) a synthetic 32-layer Llama-2-7B-geometry AQLM 2x8
      checkpoint (HF layout, numpy seed 0) loaded by ``load_aqlm_llama``
-     serves ``generate()`` as phase 3 (b) does, through A and C, with phase
+     serves ``generate()`` as phase 3 (b) does, through its routes, with phase
      3's logits gate, and a projection of each kind reconstructs to a numpy
      dequant; (b) two of its layers as a sharded HF directory (the port's
      safetensors writer) load back equal, ``save_lutvq``/``load_lutvq`` is
@@ -124,6 +134,14 @@ shapes the main paths give A, M, K, H and I (``PLAN_CASES``), each held to
 the plain version and timed on the device, beside the plan the wrapper
 picks: the data of the plan's cost model.
 
+    python3 chip_smoke.py --sweep     # phases 0-1, then the crossover tables
+
+measures the projection strategies' sweep (``tpu_lutvq_torch/dataflow/
+sweep.py``) and the attention crossover (``dataflow/attn_sweep.py``) on the
+card and rewrites ``dataflow/h100_sweep.csv`` and ``dataflow/h100_attn.csv``
+(refit the traffic model with ``python -m tpu_lutvq_torch.dataflow.sweep
+--fit``).
+
     python3 chip_smoke.py --lookups   # phases 0-1, then the lookups alone
 
 times A and M at phase 2's projection shapes and K, H and I at its scans
@@ -146,6 +164,10 @@ import time
 
 import torch
 
+from tpu_lutvq_torch.dataflow.chips import default_chip
+from tpu_lutvq_torch.dataflow.sweep import device_ms, time_ms
+
+CHIP = default_chip()
 # max|kernel - plain| / max|plain| per call.  Readings on the H100 were
 # <= 1.6e-7 (lut_gemv) and <= 2.9e-5 (dequant_mm, tensor-core accumulation);
 # the wrong rounding (LUT left in f32, codebook sum rounded to bf16) reads
@@ -170,14 +192,15 @@ TABLE_SCANS = {
     (8, 4, 256): ("lut_gemv_bpair",),
     (1, 16, 128): ("lut_gemv_f32", "lut_gemv_i8", "lut_gemv_i16"),
 }
-# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and operations/s
-# by the type the work runs in (f32 on the CUDA cores, bf16 tensor cores)
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense; tpu_lutvq_torch.dataflow.chips):
+# HBM bytes/s, and operations/s by the type the work runs in (f32 on the
+# CUDA cores, bf16 and int8 tensor cores)
+HBM_BYTES_S = CHIP.hbm_bytes_s
+PEAK_OPS_S = CHIP.peak_ops
 # the lookups' floor (A, M, B, J1, J2): their shared-memory bytes at 128 B a
 # clock an SM, at the card's maximum SM clock (nvidia-smi clocks.max.sm, read
 # in phase 0)
-SMEM_BYTES_CLK = 128
+SMEM_BYTES_CLK = CHIP.smem_bytes_clk
 SM_CLOCK_HZ = None
 # kernels of the sources redesigned for Hopper that phase 1 holds to zero
 # spills: csrc/flash_decode.cu (D, F), csrc/lut_nibbles.cu (J1, J2),
@@ -328,47 +351,15 @@ LONG_PROMPTS = {3: 700, 10: 690}  # run (iii): two prompts past the chunk
 N_SLOTS = 8
 PAGED = dict(paged_blocks=32, paged_block_size=256)  # 31 usable: no admission waits
 PREFILL_CHUNK = 256
+# the routes phase: the rows at which every Llama-2-7B projection's route
+# must read within ROUTE_TOL of the fastest exact-tier strategy
+ROUTE_ROWS = (1, 2, 4, 8)
+ROUTE_TOL = 1.10
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events), with
-    the 50 MB L2 flushed before each call: the serving path meets its codes
-    cold."""
-    for _ in range(warmup):
-        fn()
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, calls=20):
-    """The card's own time for one ``fn()`` (torch.profiler: the self time
-    of every CUDA kernel the calls launch, over ``calls`` calls with the L2
-    warm), without the host's dispatch that an event-timed call includes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
 
 
 def kernel_times(kernel, plain, library, reps=10, plain_reps=5):
@@ -1358,9 +1349,10 @@ def phase_attention(device):
     return rows
 
 
-def prefill(cfg, weights, prompts, plain):
+def prefill(cfg, weights, prompts, plain, **kw):
     """Prefill last-position logits and the caches, as ``generate()``
-    computes them (ragged layout, per-sequence positions)."""
+    computes them (ragged layout, per-sequence positions); ``kw`` goes to
+    ``llama_forward`` (``strategy``)."""
     from tpu_lutvq_torch.models.llama import init_caches, llama_forward
     from tpu_lutvq_torch.runtime.generate import bucket_window, pad_prompts
 
@@ -1368,34 +1360,36 @@ def prefill(cfg, weights, prompts, plain):
     caches = init_caches(cfg, len(prompts), device=weights.embed.device)
     logits, caches = llama_forward(
         cfg, weights, toks, caches, 0, window=bucket_window(toks.shape[1], cfg.max_seq),
-        logits_mode="index", logits_idx=lens - 1, plain=plain,
+        logits_mode="index", logits_idx=lens - 1, plain=plain, **kw,
     )
     return logits[:, 0], caches, lens
 
 
-def logits_errors(cfg, weights, prompts):
+def logits_errors(cfg, weights, prompts, **kw):
     """Prefill last-position and first-decode-step logits of each run against
     the plain run's, as (prefill, step) errors.  Every step starts from the
     kernel run's caches and token, so it measures the step alone.  Runs: the
-    kernels, and the ``REFERENCE_RUNS`` (noise floors and a control)."""
+    kernels, and the ``REFERENCE_RUNS`` (noise floors and a control); ``kw``
+    goes to every forward (``strategy``)."""
     from tpu_lutvq_torch.models.llama import llama_decode_step
     from tpu_lutvq_torch.runtime.generate import bucket_window
 
-    pre_k, caches, lens = prefill(cfg, weights, prompts, plain=False)
+    pre_k, caches, lens = prefill(cfg, weights, prompts, plain=False, **kw)
     tok = pre_k.argmax(-1).to(torch.int32)
     window = bucket_window(int(lens.max()) + 1, cfg.max_seq)
 
     def step(plain):
         copy = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
-        return llama_decode_step(cfg, weights, tok, copy, lens, window=window, plain=plain)[0]
+        return llama_decode_step(cfg, weights, tok, copy, lens, window=window, plain=plain,
+                                 **kw)[0]
 
-    pre_p, step_p = prefill(cfg, weights, prompts, plain=True)[0], step(True)
+    pre_p, step_p = prefill(cfg, weights, prompts, plain=True, **kw)[0], step(True)
     step_k = step(False)
     finite = bool(torch.isfinite(pre_k).all() and torch.isfinite(step_k).all())
     errs = {"kernel": (rel_err(pre_k, pre_p), rel_err(step_k, step_p))}
     for name, variant in REFERENCE_RUNS.items():
         with plain_versions(**variant):
-            pre = prefill(cfg, weights, prompts, plain=True)[0]
+            pre = prefill(cfg, weights, prompts, plain=True, **kw)[0]
             errs[name] = (rel_err(pre, pre_p), rel_err(step(True), step_p))
     return errs, finite
 
@@ -1421,34 +1415,44 @@ def model(device):
 
 def slice_requests(cfg):
     """Phase 3's requests from a seeded generator: (a) a ragged B=4 batch for
-    32 new tokens, (b) one 16-token prompt for 16."""
+    32 new tokens, (b) one 16-token prompt for 16, both ``strategy="auto"``;
+    (c) (b)'s prompt through the lookups (``strategy="lut_gemv"``: A decodes,
+    B prefills), which ``auto`` no longer takes at this geometry."""
     ids = torch.Generator().manual_seed(1)
 
     def prompt(n):
         return torch.randint(0, cfg.vocab_size, (n,), generator=ids).tolist()
 
-    return {"a": dict(prompts=[prompt(n) for n in (7, 19, 33, 64)], new=32),
-            "b": dict(prompts=[prompt(16)], new=16)}
+    a, b = [prompt(n) for n in (7, 19, 33, 64)], [prompt(16)]
+    return {"a": dict(prompts=a, new=32, strategy="auto"),
+            "b": dict(prompts=b, new=16, strategy="auto"),
+            "c": dict(prompts=b, new=16, strategy="lut_gemv")}
 
 
 def phase_slice(device, cfg, weights):
     from tpu_lutvq_torch.runtime import generate
+    from tpu_lutvq_torch.runtime.generate import pad_prompts
 
     requests = slice_requests(cfg)
     generate(cfg, weights, requests["b"]["prompts"], 2)  # warm-up: lazy inits
     for r in requests.values():  # prefill-only timing runs, before the counted run
-        _, r["prefill_s"] = timed(lambda: generate(cfg, weights, r["prompts"], 1))
+        _, r["prefill_s"] = timed(lambda: generate(cfg, weights, r["prompts"], 1,
+                                                   strategy=r["strategy"]))
 
-    names = ("lut_gemv", "lut_gemv_bpair", "dequant_mm")  # A (B=1), B (B=4), C (prefill)
+    # A (one row), B (2-8 rows), C: each where pick_strategy routes the
+    # prefill's and the decode steps' rows
+    names = ("lut_gemv", "lut_gemv_bpair", "dequant_mm")
     for k in names:
         setattr(*counters()[k], 0)
     for name, r in requests.items():
         before = [getattr(*counters()[k]) for k in names]
-        r["res"], r["total_s"] = timed(lambda: generate(cfg, weights, r["prompts"], r["new"]))
+        r["res"], r["total_s"] = timed(lambda: generate(cfg, weights, r["prompts"], r["new"],
+                                                        strategy=r["strategy"]))
         r["launches"] = [getattr(*counters()[k]) - n for k, n in zip(names, before)]
-        lookup = r["launches"][1 if len(r["prompts"]) > 1 else 0]
-        check(lookup > 0 and r["launches"][2] > 0,
-              f"request {name}: a kernel did not launch {dict(zip(names, r['launches']))}")
+        rows = pad_prompts(r["prompts"], cfg.max_seq, "cpu")[0].numel()
+        check_routes(f"request {name}", dict(zip(names, r["launches"])),
+                     [routed_launches(cfg, rows, strategy=r["strategy"]),
+                      routed_launches(cfg, len(r["prompts"]), strategy=r["strategy"])], names)
     launches = {k: getattr(*counters()[k]) for k in names}
 
     for name, r in requests.items():
@@ -1461,15 +1465,17 @@ def phase_slice(device, cfg, weights):
         for i, n in enumerate(lens):
             check(toks[i, :n].tolist() == r["prompts"][i], f"request {name}: prompt {i} altered")
         # logits against a re-run through the plain versions
-        r["errs"], finite = logits_errors(cfg, weights, r["prompts"])
+        r["errs"], finite = logits_errors(cfg, weights, r["prompts"], strategy=r["strategy"])
         check(finite, f"request {name}: non-finite logits")
-        plain_toks = generate(cfg, weights, r["prompts"], new, plain=True).tokens
+        plain_toks = generate(cfg, weights, r["prompts"], new, plain=True,
+                              strategy=r["strategy"]).tokens
         agree = sum(
             int((toks[i, n : n + new] == plain_toks[i, n : n + new]).sum())
             for i, n in enumerate(lens)
         ) / (b * new)
         decode_tps = b * (new - 1) / (r["total_s"] - r["prefill_s"])
-        print(f"[slice] request {name}: B={b} prompts {lens} new {new}; launches "
+        print(f"[slice] request {name}: B={b} prompts {lens} new {new} strategy "
+              f"{r['strategy']}; launches "
               + " ".join(f"{k} {n}" for k, n in zip(names, r["launches"])) + "; tokens agreeing "
               f"with plain {agree:.3f}; prefill {1e3 * r['prefill_s']:.1f} ms; decode "
               f"{decode_tps:.1f} tok/s (host clock, {r['total_s']:.2f} s total)")
@@ -1526,6 +1532,46 @@ def counters():
             "lut_gemv_nibbles_bpair": (lg, "LUT_GEMV_NIBBLES_BPAIR_LAUNCHES")}
 
 
+def projections(cfg):
+    """(d_in, d_out) of each of a decoder layer's seven projections."""
+    return {"wq": (cfg.hidden, cfg.q_dim), "wk": (cfg.hidden, cfg.kv_dim),
+            "wv": (cfg.hidden, cfg.kv_dim), "wo": (cfg.q_dim, cfg.hidden),
+            "w_gate": (cfg.hidden, cfg.ffn), "w_up": (cfg.hidden, cfg.ffn),
+            "w_down": (cfg.ffn, cfg.hidden)}
+
+
+def routed_launches(cfg, rows, quality="exact", strategy="auto"):
+    """The launches one forward of ``rows`` rows makes through ``cfg``'s
+    projections, by counter, as ``strategy`` routes them ("auto": as
+    ``dataflow.traffic.pick_strategy`` does): the lookups one launch per 8
+    tokens (A at one, B at 2-8), the dequant-matmul one a call (at
+    ``quality="fast"`` the W8A8 kernel and its fold)."""
+    from tpu_lutvq_torch.dataflow.traffic import pick_strategy
+
+    out = {}
+    for d_in, d_out in projections(cfg).values():
+        route = strategy if strategy != "auto" else pick_strategy(cfg.vq_cfg(d_in), d_out, rows)
+        if route == "lut_gemv":
+            names = ["lut_gemv" if min(8, rows - b0) == 1 else "lut_gemv_bpair"
+                     for b0 in range(0, rows, 8)]
+        else:
+            names = ["dequant_mm"] if quality == "exact" else ["dequant_mm_i8", "fold_i8"]
+        for k in names:
+            out[k] = out.get(k, 0) + cfg.n_layers
+    return out
+
+
+def check_routes(label, launches, expected, names=None):
+    """Among ``names`` (default: the projection kernels), the kernels that
+    launched are those the routes of ``expected`` (a list of
+    ``routed_launches``) take."""
+    names = names or ("lut_gemv", "lut_gemv_bpair", "dequant_mm", "dequant_mm_i8", "fold_i8")
+    want = {k for e in expected for k in e}
+    got = {k for k in names if launches.get(k, 0) > 0}
+    check(got == want & set(names), f"{label}: launched {sorted(got)}, the routes take "
+                                    f"{sorted(want & set(names))}")
+
+
 def serve(cfg, weights, prompts, run_kw=None, watch=None, **kw):
     """One batcher run from zeroed launch counters: (outputs by id, seconds,
     launches by kernel, the batcher).  ``watch(batcher)`` runs before it."""
@@ -1567,9 +1613,22 @@ def phase_batcher(device, cfg, weights):
         "iii slab flash chunked": (long_prompts, dict(horizon=4, pipeline=True),
                                    dict(attn="flash", prefill_chunk=PREFILL_CHUNK)),
     }
-    must_launch = {"i slab auto": ("flash_decode", "dequant_mm"),
-                   "ii paged auto": ("flash_decode_paged", "dequant_mm"),
-                   "iii slab flash chunked": ("flash_decode", "flash_prefill", "dequant_mm")}
+    # every decode tick runs all N_SLOTS rows: the projections' routes at
+    # that many rows, and attention as resolve_attn picks it at the longest
+    # request's window
+    from tpu_lutvq_torch.models.attn_policy import resolve_attn
+    from tpu_lutvq_torch.runtime.generate import bucket_window
+
+    decode = set(routed_launches(cfg, N_SLOTS))
+    window = bucket_window(max(PROMPT_LENS) + NEW_TOKENS, cfg.max_seq)
+
+    def flash(kernel, paged):
+        auto = resolve_attn("auto", batch=N_SLOTS, window=window, heads=cfg.n_heads, paged=paged)
+        return {kernel} if auto == "flash" else set()
+
+    must_launch = {"i slab auto": decode | flash("flash_decode", False),
+                   "ii paged auto": decode | flash("flash_decode_paged", True),
+                   "iii slab flash chunked": decode | {"flash_decode", "flash_prefill"}}
     results = {}
     for name, (ps, run_kw, kw) in runs.items():
         outs, secs, launches, b = serve(cfg, weights, ps, run_kw, **kw)
@@ -1674,10 +1733,13 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
     for i, o in outs.items():
         check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
               f"run iv: request {i} malformed")
-    check(len(ticks) > 0 and all(g == per_step * h == f and c == 0 for h, g, c, f in ticks),
-          f"run iv: a decode tick missed the W8A8 kernel or its fold, or took bf16x2: "
-          f"{ticks[:4]}")
-    check(launches["dequant_mm"] == 0, "run iv: the bf16x2 kernel launched")
+    # a step's W8A8 launches: the projections auto routes to dequant_mm at N_SLOTS rows
+    w8a8 = routed_launches(cfg, N_SLOTS, quality="fast").get("dequant_mm_i8", 0)
+    check(len(ticks) > 0 and all(g == w8a8 * h == f and c == 0 for h, g, c, f in ticks),
+          f"run iv: a decode tick's W8A8 kernels or folds are not its routes' "
+          f"({w8a8} a step), or it took bf16x2: {ticks[:4]}")
+    check(launches["dequant_mm"] == 0 and launches["dequant_mm_i8"] > 0,
+          "run iv: the bf16x2 kernel launched, or the W8A8 one did not")
     check(launches["fold_i8"] == launches["dequant_mm_i8"],
           f"run iv: {launches['fold_i8']} folds for {launches['dequant_mm_i8']} W8A8 launches")
     pos = torch.tensor(b.slot_pos - 1, dtype=torch.int32, device=device)
@@ -1700,10 +1762,10 @@ def phase_tier_runs(device, cfg, weights, batcher_results):
                                    window=bucket_window(16, cfg.max_seq))
     tok = logits[:, -1].argmax(-1).to(torch.int32)
 
-    def step(variant):
+    def step(variant):  # pairf is a variant of the lookups: every projection on them
         copy = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
         return llama_decode_step(cfg, weights, tok, copy, 16, variant=variant,
-                                 window=bucket_window(17, cfg.max_seq))[0]
+                                 strategy="lut_gemv", window=bucket_window(17, cfg.max_seq))[0]
 
     lg.LUT_GEMV_PAIRF_LAUNCHES = 0
     y_pairf = step("pairf")
@@ -2281,10 +2343,12 @@ def phase_checkpoint(device):
         check(err <= 1e-6, f"(a) {field} reconstructs wrong: {err}")
         del w
     generate(cfg, weights, prompt, 2)  # warm-up
-    lg.LUT_GEMV_LAUNCHES = dq.DEQUANT_MM_LAUNCHES = 0
+    lg.LUT_GEMV_LAUNCHES = lg.LUT_GEMV_BPAIR_LAUNCHES = dq.DEQUANT_MM_LAUNCHES = 0
     res, total_s = timed(lambda: generate(cfg, weights, prompt, CKPT_NEW))
-    launches = {"lut_gemv": lg.LUT_GEMV_LAUNCHES, "dequant_mm": dq.DEQUANT_MM_LAUNCHES}
-    check(min(launches.values()) > 0, f"(a) a kernel did not launch {launches}")
+    launches = {"lut_gemv": lg.LUT_GEMV_LAUNCHES, "lut_gemv_bpair": lg.LUT_GEMV_BPAIR_LAUNCHES,
+                "dequant_mm": dq.DEQUANT_MM_LAUNCHES}
+    check_routes("(a)", launches, [routed_launches(cfg, CKPT_PROMPT), routed_launches(cfg, 1)],
+                 tuple(launches))
     toks = res.tokens
     check(toks.shape == (1, CKPT_PROMPT + CKPT_NEW) and toks[0, :CKPT_PROMPT].tolist() == prompt[0]
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"(a) tokens {toks}")
@@ -2432,6 +2496,95 @@ def out_group_checks(device, cfg, weights, tensors, og):
         check(err <= CKPT_OG_TOL, f"(b) out_group {og} {field}: f32 tables disagree {err}")
     print(f"[ckpt] (b) out_group {og}: layer 0's projections, f32 tables against the numpy "
           f"dequant within {CKPT_OG_TOL:.0e}")
+
+
+def phase_routes(device):
+    """At the Llama-2-7B projection shapes and ``ROUTE_ROWS`` rows, every
+    exact-tier strategy's whole ``QuantizedLinear.apply`` call on the
+    device (the median of three turns of the strategies, each the median of
+    three profiler sessions of 20 calls that saw every kernel, L2 warm):
+    ``pick_strategy``'s route must be within ``ROUTE_TOL`` of the fastest.
+    Beside each route, ``layer_report``'s predicted time, and a layer's
+    total of both."""
+    from tpu_lutvq_torch import init_vq_params
+    from tpu_lutvq_torch.dataflow.sweep import EXACT_TIER
+    from tpu_lutvq_torch.dataflow.traffic import pick_strategy
+    from tpu_lutvq_torch.models.linear import QuantizedLinear
+    from tpu_lutvq_torch.models.llama import LlamaConfig
+    from tpu_lutvq_torch.utils.profiling import layer_report
+
+    lg, _ = kernel_modules()
+    cfg = LlamaConfig.llama2_7b()
+    gen = torch.Generator(device).manual_seed(7)
+    shapes = sorted(set(projections(cfg).values()))
+    layers = {}
+    for d_in, d_out in shapes:
+        vq = cfg.vq_cfg(d_in)
+        layers[d_in, d_out] = QuantizedLinear(
+            lg.pack_params(vq, init_vq_params(gen, vq, d_out, with_scales=True)))
+    for rows in ROUTE_ROWS:
+        report = {r["proj"]: r for r in layer_report(cfg, batch=rows)[:-1]}
+        measured = {}
+        for (d_in, d_out), layer in layers.items():
+            vq = cfg.vq_cfg(d_in)
+            x = torch.randn((rows, d_in), generator=gen, device=device)
+            times = {s: [] for s in EXACT_TIER}
+            for _ in range(3):  # the strategies in turn
+                for s in EXACT_TIER:
+                    times[s].append(1e3 * device_ms(lambda: layer.apply(vq, x, strategy=s),
+                                                    sessions=3))
+            times = {s: statistics.median(t) for s, t in times.items()}
+            pick, fastest = pick_strategy(vq, d_out, rows), min(times, key=times.get)
+            measured[d_in, d_out] = times[pick]
+            pred = next(r for r in report.values() if (r["d_in"], r["d_out"]) == (d_in, d_out))
+            print(f"[routes] {d_in}x{d_out} rows={rows}: device us " + " ".join(
+                f"{s} {t:.2f}" for s, t in times.items()) + f"; route {pick} "
+                f"({times[pick] / times[fastest]:.3f} of the fastest), layer_report predicts "
+                f"{pred['strategy']} {pred['pred_us']:.2f} us ({pred['bound']}-bound)")
+            check(pred["strategy"] == pick, f"layer_report's route {pred['strategy']} is not {pick}")
+            check(times[pick] <= ROUTE_TOL * times[fastest],
+                  f"{d_in}x{d_out} rows={rows}: the route {pick} reads {times[pick]:.2f} us, "
+                  f"over {ROUTE_TOL} x the fastest ({fastest} {times[fastest]:.2f} us)")
+        total = sum(measured[r["d_in"], r["d_out"]] for r in report.values())
+        print(f"[routes] rows={rows}: a 7B layer's seven routed projections {total:.2f} us on "
+              f"the device, layer_report predicts {sum(r['pred_us'] for r in report.values()):.2f}")
+
+
+def phase_native():
+    """The port's native host library (``tpu_lutvq_torch/csrc/lutvq_pack.cpp``),
+    built here with g++, bit-equal to its numpy branches at Llama-2-7B
+    width: a gate projection's codes transposed and split into two padded
+    shards, and a 4096x4096 1x16 projection dequantized (host seconds of
+    each beside the numpy branch's)."""
+    import numpy as np
+
+    native = importlib.import_module("tpu_lutvq_torch.utils.native")
+    built, secs = timed(native.have_native)
+    check(built, "the native library did not build")
+    print(f"[native] built and loaded {native._build()} in {secs:.1f} s")
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 256, (11008, 1024), dtype=np.uint8)  # (d_out, G) of w_gate
+    one_x16 = rng.integers(0, 1 << 16, (4096, 512, 1), dtype=np.uint16)  # (d_out, M, N)
+    cb = rng.standard_normal((1, 1 << 16, 8), dtype=np.float32)
+    scales = rng.random(4096, dtype=np.float32) + 0.5
+    cases = {
+        "transpose_u8 11008x1024": lambda: native.transpose_u8(codes),
+        "shard_repack_u8 1024x11008 into 2 shards of 5632": lambda: native.shard_repack_u8(
+            codes.T, 5504, 5632, 2, 0),
+        "dequant_additive 1x16 4096x4096": lambda: native.dequant_additive(one_x16, cb, scales),
+    }
+    load = native._load
+    for name, fn in cases.items():
+        got, t_native = timed(fn)
+        native._load = lambda: None  # the numpy branch
+        try:
+            want, t_numpy = timed(fn)
+        finally:
+            native._load = load
+        same = got.dtype == want.dtype and np.array_equal(got, want)
+        print(f"[native] {name}: bit-equal to numpy {same}; native {t_native:.3f} s, numpy "
+              f"{t_numpy:.3f} s (host clock)")
+        check(same, f"native {name} differs from the numpy branch")
 
 
 KERNELS = {
@@ -2591,6 +2744,21 @@ def phase_guarded(device):
     check(not bands.bad, "a kernel wrote outside its buffer")
 
 
+def phase_sweep(smi):
+    """``--sweep``: measure the projection strategies' sweep and the attention
+    crossover on this card and rewrite ``tpu_lutvq_torch/dataflow/
+    h100_sweep.csv`` and ``h100_attn.csv``, the card's name and power limit
+    in their first line."""
+    from tpu_lutvq_torch.dataflow import attn_sweep, sweep
+
+    header = (smi, "python3 chip_smoke.py --sweep; device times by torch.profiler, L2 warm; "
+                   "events: CUDA-event medians, L2 flushed")
+    run_phase("sweep", sweep.run_sweep, None, str(sweep.SWEEP_CSV), True, header)
+    run_phase("attention crossover", attn_sweep.measure_attention, str(attn_sweep.ATTN_CSV),
+              header)
+    print(f"[sweep] wrote {sweep.SWEEP_CSV} and {attn_sweep.ATTN_CSV}")
+
+
 def run_phase(label, fn, *args):
     """``fn(*args)``, then its seconds (host clock, synchronised)."""
     out, secs = timed(lambda: fn(*args))
@@ -2601,7 +2769,7 @@ def run_phase(label, fn, *args):
 def main(mode=None):
     import tpu_lutvq_torch  # noqa: F401  (fails at once outside the repository)
 
-    phase_device()
+    smi = phase_device()
     device = torch.device("cuda")
     phase_build(strict=mode not in ("--profile", "--plans", "--lookups"))
     if mode == "--profile":
@@ -2619,12 +2787,17 @@ def main(mode=None):
     if mode == "--lookups":
         phase_lookups(device)
         return
+    if mode == "--sweep":
+        phase_sweep(smi)
+        return
     rows = run_phase("phase 2 projections", phase_kernels, device)
     rows.update(run_phase("phase 2 attention", phase_attention, device))
     for name, rs in run_phase("phase 2 tables", phase_tables, device).items():
         rows.setdefault(name, []).extend(rs)
     rows.update(run_phase("phase 2 tiers", phase_tiers, device))
     rows.update(run_phase("phase 2 nibbles", phase_nibbles, device))
+    run_phase("routes", phase_routes, device)
+    run_phase("native", phase_native)
     cfg, weights = model(device)
     launches = run_phase("phase 3", phase_slice, device, cfg, weights)
     batcher = run_phase("phase 4", phase_batcher, device, cfg, weights)
@@ -2659,8 +2832,8 @@ if __name__ == "__main__":
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     if sys.argv[1:] not in ([], ["--profile"], ["--guard"], ["--spread"], ["--plans"],
-                            ["--lookups"]):
-        print("usage: chip_smoke.py [--profile | --guard | --spread | --plans | --lookups]",
-              file=sys.stderr)
+                            ["--lookups"], ["--sweep"]):
+        print("usage: chip_smoke.py [--profile | --guard | --spread | --plans | --lookups | "
+              "--sweep]", file=sys.stderr)
         sys.exit(2)
     main(*sys.argv[1:])

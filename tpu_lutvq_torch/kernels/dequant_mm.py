@@ -181,7 +181,7 @@ def plan_i8(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int,
     """``csrc/dequant_mm_i8.cu``'s plan; its k-steps count subvectors (128
     inputs a step with a shared codebook, 32 with per-subvector ones), and
     at most ``_I8_MAX_SPLITS`` splits, one thread-block cluster a tile."""
-    step = _I8_STEP_INPUTS[shared] // d_subvec
+    step = max(1, _I8_STEP_INPUTS[shared] // d_subvec)
     return _plan(_I8_TILES, rows, d_out, step, -(-n_subvec // step), sms, _I8_MAX_SPLITS)
 
 

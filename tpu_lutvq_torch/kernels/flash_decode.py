@@ -256,7 +256,7 @@ def flash_decode_attention(
     if layer is not None:
         raise NotImplementedError(
             "flash_decode_attention(layer=) reads a stacked cache, which is not "
-            "ported (ROADMAP Queue 1 item 8)"
+            "ported (ROADMAP: the stacked and hybrid cache container)"
         )
     b, h, dh = q.shape
     hkv, s_max = k_q.shape[1], k_q.shape[2]

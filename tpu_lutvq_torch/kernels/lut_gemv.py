@@ -486,9 +486,7 @@ def scan_candidates(kind: int, bp: int, groups: int, d_out_pad: int, kp: int, sm
                 else:
                     continue
                 if fits is None:
-                    per_sm = min(2048 // threads, 65536 // (128 * threads),
-                                 _SCAN_SM_SMEM // (plan.smem_bytes(kp) + 1024))
-                    slots = sms * per_sm // ns
+                    slots = sms * scan_blocks_per_sm(plan, kp) // ns
                 else:
                     slots = fits(kind, bp, kp, threads, tc, ns, stage, plan.nbuf)
                 if slots < 1:
@@ -498,6 +496,13 @@ def scan_candidates(kind: int, bp: int, groups: int, d_out_pad: int, kp: int, sm
                 cost = _scan_cost(plan, tiles, slots, table, sms, n_rounds)
                 out.append(((max(cost, hbm), cost, ns, threads), plan))
     return out
+
+
+def scan_blocks_per_sm(plan: ScanPlan, kp: int) -> int:
+    """Blocks of ``plan`` an SM holds at once, as registers (128 a thread),
+    threads and shared memory allow (the model of the occupancy query)."""
+    return min(2048 // plan.threads, 65536 // (128 * plan.threads),
+               _SCAN_SM_SMEM // (plan.smem_bytes(kp) + 1024))
 
 
 def _scan_cost(plan: ScanPlan, tiles: int, slots: int, table: int, sms: int,

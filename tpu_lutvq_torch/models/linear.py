@@ -1,10 +1,12 @@
 """Quantized linear layers (counterpart of ``tpu_lutvq.models.linear``).
 
-``QuantizedLinear.apply`` dispatches between the LUT-GEMV kernel (small
-batches: decode) and the dequant-matmul kernel (prefill and large batches);
-nibble and out_group packs stay on the LUT-GEMV kernel.  ``DenseLinear``
-and ``ChunkedVQLinear`` (the two 1x16 tiers a checkpoint loads into) take
-the same ``apply`` call, so any of the three fills a projection slot.
+``QuantizedLinear.apply`` dispatches between the LUT-GEMV kernel and the
+dequant-matmul kernel; ``strategy="auto"`` takes the one of least predicted
+device time on the H100 (``dataflow.traffic.pick_strategy``, fitted to the
+card's measured sweep), and nibble and out_group packs stay on the LUT-GEMV
+kernel.  ``DenseLinear`` and ``ChunkedVQLinear`` (the two 1x16 tiers a
+checkpoint loads into) take the same ``apply`` call, so any of the three
+fills a projection slot.
 """
 
 from __future__ import annotations
@@ -15,24 +17,9 @@ import torch
 
 from tpu_lutvq_torch.core.config import VQConfig
 from tpu_lutvq_torch.core.params import VQParams, init_vq_params
+from tpu_lutvq_torch.dataflow.traffic import pick_strategy
 from tpu_lutvq_torch.kernels.dequant_mm import dequant_matmul
 from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, local_view, lut_gemv, pack_params
-
-# strategy="auto": rows ≤ this go to lut_gemv, more to dequant_mm.  Provisional:
-# it reproduces what the JAX package's v5e cost model picks at every
-# Llama-2-7B projection shape, and stands until a crossover measured on the
-# H100 replaces it.
-LUT_GEMV_MAX_BATCH = 6
-
-
-def pick_strategy(cfg: VQConfig, d_out: int, rows: int) -> str:
-    """The kernel ``strategy="auto"`` takes for ``rows`` inputs of a
-    ``cfg`` layer with ``d_out`` outputs (the JAX package's signature,
-    ``dataflow/traffic.py:388``).  Only ``rows`` decides for now: the
-    measured H100 crossover that will read ``cfg`` and ``d_out`` replaces
-    ``LUT_GEMV_MAX_BATCH``."""
-    del cfg, d_out
-    return "lut_gemv" if rows <= LUT_GEMV_MAX_BATCH else "dequant_mm"
 
 
 class DenseLinear(NamedTuple):

@@ -68,6 +68,14 @@ class LlamaConfig:
         return cls(**kw)
 
     @classmethod
+    def llama2_13b(cls, **kw) -> "LlamaConfig":
+        return cls(hidden=5120, ffn=13824, n_layers=40, n_heads=40, n_kv_heads=40, **kw)
+
+    @classmethod
+    def llama2_70b(cls, **kw) -> "LlamaConfig":
+        return cls(hidden=8192, ffn=28672, n_layers=80, n_heads=64, n_kv_heads=8, **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
         """Test-scale config."""
         kw.setdefault("vocab_size", 256)
@@ -319,7 +327,8 @@ def llama_forward(
     """
     if isinstance(caches, (KVCache, PagedKVCache)):
         raise NotImplementedError(
-            "stacked (scan/hybrid) caches are not ported (ROADMAP Queue 1 item 8)"
+            "stacked (scan/hybrid) caches are not ported (ROADMAP: the stacked and "
+            "hybrid cache container)"
         )
     b = tokens.shape[0]
     device = weights.embed.device

@@ -94,12 +94,12 @@ class ContinuousBatcher:
                                        paged_cache_factory)):
             raise NotImplementedError(
                 "injected device programs serve tensor-parallel meshes, which need "
-                "dist/ (ROADMAP Queue 1 item 13)"
+                "`dist/`, not ported yet (ROADMAP: `dist/`)"
             )
         if stacked_kv:
             raise NotImplementedError(
-                "stacked_kv (the stacked/hybrid cache container) is not ported "
-                "(ROADMAP Queue 1 item 8)"
+                "stacked_kv is not ported (ROADMAP: the stacked and hybrid cache "
+                "container)"
             )
         self.cfg = cfg
         self.weights = weights

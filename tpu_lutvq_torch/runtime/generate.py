@@ -170,7 +170,8 @@ def generate(
     prefix.  ``plain=True`` runs the kernels' plain versions (reference run).
     """
     if stacked_kv:
-        raise NotImplementedError("stacked_kv (hybrid cache container) is not ported")
+        raise NotImplementedError(
+            "stacked_kv is not ported (ROADMAP: the stacked and hybrid cache container)")
     device = weights.embed.device
     ragged = isinstance(prompt, (list, tuple))
     if ragged:
