@@ -237,6 +237,33 @@ DEQUANT_ROWS = (7, 8, 16, 256, 1024)
 # shared codebook) at PATH_ROWS
 PATH_CASES = (("per-subvector", 4096, 4096, 8, False), ("d_subvec=3", 4095, 4096, 3, False))
 PATH_ROWS = (8, 256)
+# Phase 2's general dequant shapes: every layer JAX's dequant_matmul takes
+# beyond 2x8's d_subvec 8 (C's and G's general instances).  (name, config
+# maker, d_out): the sweep's AQLM group 16, PQ and RQ rows, a T-MAC W4
+# layer packed without nibbles, d_subvec 2 (per-subvector codebooks:
+# streamed, two subvectors a thread's inputs) and 6 (a shared codebook
+# staged; 511 subvectors, so x rows are not 16-byte aligned) controls (C
+# only: the i8 tables need d_subvec % 4 == 0), 8 codebooks of d_subvec 12
+# (two codebook groups a k-step, two subvectors a thread's inputs in G) and
+# 4 of d_subvec 16 (staged in both).  Between them every general instance
+# kind runs: staged or streamed codebooks, one or two subvectors a thread.
+SHAPE_CASES = (
+    ("AQLM g16", lambda c: c.aqlm_2x8(4096, group=16), 4096),
+    ("PQ", lambda c: c.pq_ann(), 1024),
+    ("RQ", lambda c: c.rq_ann(), 1024),
+    ("T-MAC unpacked", lambda c: c.tmac(4096), 4096),
+    ("d_subvec=2", lambda c: c.VQConfig(3072, 1536, 2, 256), 4096),
+    ("d_subvec=6", lambda c: c.VQConfig(3066, 511, 2, 256, shared_codebook=True), 4096),
+    ("N=8 d_subvec=12", lambda c: c.VQConfig(1536, 128, 8, 256, shared_codebook=True), 1024),
+    ("N=4 d_subvec=16", lambda c: c.VQConfig(1024, 64, 4, 256, shared_codebook=True), 1024),
+)
+SHAPE_ROWS = (1, 64)  # the sweep's AQLM_GEMV and AQLM_GEMM_B64 rows
+# the 2x8 d_subvec 8 rows' device times in PERF.md (NVIDIA H100 80GB HBM3,
+# 700.00 W): (kernel, shape) -> ms
+PERF_MD_MS = {("dequant_mm", "4096x4096 rows=8"): 0.0130,
+              ("dequant_mm", "4096x4096 rows=256"): 0.0664,
+              ("dequant_mm_i8", "4096x4096 rows=8"): 0.0118,
+              ("dequant_mm_i8", "4096x4096 rows=256"): 0.0813}
 # The precision tiers (phase 2).  W8A8 (dequant_mm_i8): 7 prefill rows, the
 # batcher's 8 decode rows, partial and full 64-row tiles; it sums integers
 # exactly, so kernel and plain version must be equal.  f32 (dequant_mm_f32):
@@ -353,6 +380,14 @@ PAGED = dict(paged_blocks=32, paged_block_size=256)  # 31 usable: no admission w
 PREFILL_CHUNK = 256
 # the routes phase: the rows at which every Llama-2-7B projection's route
 # must read within ROUTE_TOL of the fastest exact-tier strategy
+# The stacked phase (the hybrid and scan containers at the 7B geometry,
+# depth uncut): phase 3's requests (a) and (b) and run (i) again, the fused
+# chunked prefill on two prompts of FUSED_T tokens, and B=1 decode over a
+# STACKED_CONTEXT-token context for STACKED_STEPS steps, tuple against
+# stacked, in turns (tuple, stacked, stacked, tuple)
+FUSED_T = 700
+STACKED_CONTEXT = 1900
+STACKED_STEPS = 32
 ROUTE_ROWS = (1, 2, 4, 8)
 ROUTE_TOL = 1.10
 
@@ -611,8 +646,8 @@ def phase_kernels(device):
                                                   r, gen))
         del w, packed
     for name, d_in, d_out, d, shared in PATH_CASES:
-        if d != 8:
-            continue  # C takes d_subvec 8 only
+        if d % 2:
+            continue  # an odd d_subvec takes the f32 tables (L), not C
         cfg = VQConfig(d_in, d_in // d, 2, 256, shared_codebook=shared)
         packed = lg.pack_params(cfg, init_vq_params(gen, cfg, d_out, with_scales=True))
         w = dense_bf16(cfg, packed)
@@ -917,14 +952,18 @@ def launched_kernels(fn, calls=5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    counts = {e.key: round(e.count / calls) for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
-    return {k: c for k, c in counts.items() if c}
+    for _ in range(3):  # a session that lost every kernel event counts nothing: again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: round(e.count / calls) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
+        counts = {k: c for k, c in counts.items() if c}
+        if counts:
+            break
+    return counts
 
 
 def phase_tiers(device):
@@ -1064,6 +1103,109 @@ def phase_tiers(device):
             check(r.get("wrapper_rel", 0.0) == 0.0,
                   f"{name} {r['shape']}: dequant_matmul differs from plain: {r.get('wrapper_rel')}")
     return rows
+
+
+def phase_shapes(device):
+    """C and G (with the fold) at ``SHAPE_CASES``: each against its plain
+    version (C within 2e-4 against a wrong-rounding control, G and the fold
+    bit for bit against a truncating fold), two calls bit-equal, and one
+    whole ``dequant_matmul`` call of each table launching its kernels: C
+    alone (its split reduce where d_in is split), the fold and G."""
+    import tpu_lutvq_torch as c
+
+    lg, dq = kernel_modules()
+    gen = torch.Generator(device).manual_seed(4242)
+    rows = {"dequant_mm": [], "dequant_mm_i8": [], "fold_i8": []}
+    for name, make, d_out in SHAPE_CASES:
+        cfg = make(c)
+        packed = lg.pack_params(cfg, c.init_vq_params(gen, cfg, d_out, with_scales=True))
+        w = dense_bf16(cfg, packed)
+        for r in SHAPE_ROWS:
+            shape = f"{name} {cfg.d_in}x{d_out} rows={r}"
+            row = dequant_row(shape, cfg, packed, w, r, gen)
+            x = torch.randn((r, cfg.d_in), generator=gen, device=device)
+            if row["control"] <= KERNEL_TOL["dequant_mm"]:
+                # one codebook (PQ), or sums exact in bf16 (T-MAC's ±2^n
+                # entries): the control leaves x unrounded instead
+                want = dq.dequant_mm_plain(cfg, packed, x)
+                row["rel"] = max(row["rel"], rel_err(dq.dequant_mm_bf16x2(cfg, packed, x), want))
+                row["control"] = rel_err(dq._scaled(x @ dq.dequant_weight(cfg, packed).T,
+                                                    packed), want)
+            row["call_kernels"] = launched_kernels(lambda: dq.dequant_matmul(cfg, packed, x))
+            rows["dequant_mm"].append(row)
+            if cfg.d_subvec % 4:
+                continue
+            q, s = dq.tables_i8(cfg, packed.codebook)
+            x_i8, xs = dq.fold_i8(cfg, x, s)
+            plain_x, plain_xs = dq.fold_activations_i8(cfg, x, s)
+            trunc_x, trunc_xs = truncating_fold(cfg, x, s)
+            args = (cfg, packed, x_i8, xs, q)
+            got, again = dq.dequant_mm_i8(*args), dq.dequant_mm_i8(*args)
+            want = dq.dequant_mm_i8_plain(*args)
+            control = dq.dequant_mm_i8_plain(cfg, packed, trunc_x, trunc_xs, q)
+            y = dq.dequant_matmul(cfg, packed, x, tables="i8")
+            y_plain = dq.dequant_matmul(cfg, packed, x, tables="i8", plain=True)
+            torch.cuda.synchronize()
+            m = cfg.n_subvec
+            rows["fold_i8"].append(with_bound(dict(
+                shape=shape, rel=rel_err(x_i8[:, :, :m].float(), plain_x.float()),
+                abs=float((x_i8[:, :, :m].float() - plain_x.float()).abs().max()),
+                equal=bool(torch.equal(xs, plain_xs)) and not bool(x_i8[:, :, m:].any()),
+                control=rel_err(trunc_x.float(), plain_x.float()),
+                **kernel_times(lambda: dq.fold_i8(cfg, x, s),
+                               lambda: dq.fold_activations_i8(cfg, x, s), None),
+            ), nbytes(x, s, x_i8, xs), 2 * r * cfg.n_codebook * cfg.d_in, "f32"))
+            x2 = plain_x.reshape(r, -1)
+            if r > 16 and x2.shape[1] % 8 == 0 and d_out % 8 == 0:
+                w_i8 = dq.weight_i8(cfg, packed, q).reshape(d_out, -1).contiguous()
+                library = lambda: torch._int_mm(x2, w_i8.T)  # noqa: E731
+            else:
+                xb = x.to(torch.bfloat16)
+                library = lambda: xb @ w.T  # noqa: E731
+            rows["dequant_mm_i8"].append(with_bound(dict(
+                shape=shape, rel=rel_err(got, want), equal=bool(torch.equal(got, want)),
+                abs=float((got - want).abs().max()), calls_equal=bool(torch.equal(got, again)),
+                control=rel_err(control, want), wrapper_rel=rel_err(y, y_plain),
+                call_kernels=launched_kernels(
+                    lambda: dq.dequant_matmul(cfg, packed, x, tables="i8")),
+                **kernel_times(lambda: dq.dequant_mm_i8(*args),
+                               lambda: dq.dequant_mm_i8_plain(*args), library),
+            ), nbytes(x_i8, xs, packed.codes_t, q, packed.scales, got),
+                2 * r * x2.shape[1] * d_out, "int8"))
+        del w, packed
+    for name, rs in rows.items():
+        tol = TIER_TOL.get(name, KERNEL_TOL.get(name))
+        for r in rs:
+            ks = r.pop("call_kernels", None)
+            print(f"[shapes] {name} {r['shape']}: rel err {r['rel']:.3e} (tol {tol:.0e}, "
+                  f"control {r['control']:.3e}) abs err {r['abs']:.3e}  " + times(r)
+                  + ("" if ks is None else "  whole call: " + ", ".join(
+                      f"{k[:40]} x{n}" for k, n in ks.items())))
+            check(r["rel"] <= tol, f"{name} {r['shape']} disagrees with plain: {r['rel']}")
+            check(r["control"] > tol, f"{name} {r['shape']}: tolerance passes the control")
+            check(r.get("equal", True), f"{name} {r['shape']}: not equal to its reference")
+            check(r.get("calls_equal", True), f"{name} {r['shape']}: two calls differ")
+            check(r.get("wrapper_rel", 0.0) == 0.0,
+                  f"{name} {r['shape']}: dequant_matmul differs from plain")
+            if ks is not None and name == "dequant_mm":
+                check(any("dequant_mm_bf16x2" in k or "dequant_mm_any" in k for k in ks)
+                      and all("dequant_mm" in k or "copy" in k.lower() for k in ks),
+                      f"{name} {r['shape']}: dequant_matmul launched {ks}")
+            elif ks is not None:
+                check(sum(ks.values()) == 2 and any("fold_i8" in k for k in ks)
+                      and any("dequant_mm_i8" in k for k in ks),
+                      f"{name} {r['shape']}: dequant_matmul(tables='i8') launched {ks}")
+    return rows
+
+
+def report_2x8_times(rows):
+    """The 2x8 d_subvec 8 rows' device times beside PERF.md's (a card set
+    below 700 W reads slower, so this prints and does not gate)."""
+    for (name, shape), was in PERF_MD_MS.items():
+        r = next(r for r in rows[name] if r["shape"] == shape)
+        print(f"[2x8] {name} {shape}: device {r['device_ms']:.4f} ms, PERF.md {was:.4f} ms "
+              f"({r['device_ms'] / was:.3f}x, {'within' if r['device_ms'] <= 1.1 * was else 'over'}"
+              " 10 %)")
 
 
 def f32_row(shape, cfg, packed, r, gen):
@@ -1666,6 +1808,167 @@ def phase_batcher(device, cfg, weights):
     check(errs["attn_p_f32"] > LOGITS_TOL, "B=8 step: tolerance passes the p_f32 control")
     # each run's outputs, seconds and launches (the batchers and their caches go)
     return {name: {k: v for k, v in r.items() if k != "batcher"} for name, r in results.items()}
+
+
+def first_logits(cfg, weights, prompts, stacked, **kw):
+    """Prefill then one flash decode step, as ``generate()`` lays a ragged
+    batch out, into tuple or stacked caches: (prefill logits, step logits)."""
+    from tpu_lutvq_torch.models.llama import (
+        init_caches, init_stacked_caches, llama_decode_step, llama_forward)
+    from tpu_lutvq_torch.runtime.generate import bucket_window, pad_prompts
+
+    toks, lens = pad_prompts(prompts, cfg.max_seq, weights.embed.device)
+    init = init_stacked_caches if stacked else init_caches
+    caches = init(cfg, len(prompts), device=weights.embed.device)
+    pre, caches = llama_forward(cfg, weights, toks, caches, 0,
+                                window=bucket_window(toks.shape[1], cfg.max_seq),
+                                logits_mode="index", logits_idx=lens - 1, **kw)
+    tok = pre[:, 0].argmax(-1).to(torch.int32)
+    step, _ = llama_decode_step(cfg, weights, tok, caches, lens, attn="flash",
+                                window=bucket_window(int(lens.max()) + 1, cfg.max_seq), **kw)
+    return pre[:, 0], step
+
+
+def phase_stacked(device, cfg, weights, batcher):
+    """The stacked container at the 7B geometry: (a) and (b) through
+    ``generate(stacked_kv=True)`` give the tuple runs' tokens, and their
+    prefill and flash decode logits bit for bit; (b) in scan mode
+    (``stack_llama_weights``) gives the hybrid's bit for bit; the fused
+    chunked prefill within the logits gate of the chunked one; batcher run
+    (i) with ``stacked_kv`` gives run (i)'s tokens; B=1 decode over a
+    1,900-token context, stacked against tuple: D launched in ``layer=``
+    mode, the same kernels a step as the tuple caches' and no layer-sized
+    allocation (no copy of the cache), and decode tok/s of each."""
+    import tpu_lutvq_torch.models.llama as tl
+    from tpu_lutvq_torch.runtime import generate
+    from tpu_lutvq_torch.runtime.generate import (
+        bucket_window, make_chunked_prefill, make_fused_chunked_prefill)
+
+    layer_calls = []
+    decode = tl.flash_decode_attention
+
+    def counted_decode(*a, layer=None, **k):
+        layer_calls.append(layer)
+        return decode(*a, layer=layer, **k)
+
+    tl.flash_decode_attention = counted_decode
+    for mod, name in counters().values():
+        setattr(mod, name, 0)
+    try:
+        requests = slice_requests(cfg)
+        for name in ("a", "b"):
+            r = requests[name]
+            kw = dict(strategy=r["strategy"])
+            tup = generate(cfg, weights, r["prompts"], r["new"], **kw)
+            hyb = generate(cfg, weights, r["prompts"], r["new"], stacked_kv=True, **kw)
+            same = torch.equal(tup.tokens, hyb.tokens) and torch.equal(tup.lengths, hyb.lengths)
+            want = first_logits(cfg, weights, r["prompts"], False, **kw)
+            got = first_logits(cfg, weights, r["prompts"], True, **kw)
+            bits = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"[stacked] request {name}: B={len(r['prompts'])} tokens equal to the tuple "
+                  f"run's {same}; prefill and flash-step logits bit-equal {bits} "
+                  f"(stacked cache {nbytes(*tl.init_stacked_caches(cfg, len(r['prompts']), device='meta')) / 2**30:.2f} GiB)")
+            check(same, f"stacked request {name}: tokens differ from the tuple run's")
+            check(bits, f"stacked request {name}: logits differ from the tuple run's")
+        r = requests["b"]
+        sw = tl.stack_llama_weights(weights)
+        scan = generate(cfg, sw, r["prompts"], r["new"], stacked_kv=True, strategy=r["strategy"])
+        hyb = generate(cfg, weights, r["prompts"], r["new"], stacked_kv=True,
+                       strategy=r["strategy"])
+        bits = all(torch.equal(g, w) for g, w in zip(
+            first_logits(cfg, sw, r["prompts"], True, strategy=r["strategy"]),
+            first_logits(cfg, weights, r["prompts"], True, strategy=r["strategy"])))
+        same = torch.equal(scan.tokens, hyb.tokens)
+        print(f"[stacked] request b in scan mode: tokens equal to hybrid {same}; logits "
+              f"bit-equal {bits}")
+        check(same and bits, "scan mode differs from hybrid")
+        del sw, scan
+        torch.cuda.empty_cache()
+
+        ids = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (2, FUSED_T), generator=ids).to(device)
+        fused, fused_c = make_fused_chunked_prefill(cfg, chunk=PREFILL_CHUNK)(weights, toks)
+        chunked, _ = make_chunked_prefill(cfg, chunk=PREFILL_CHUNK)(
+            weights, toks, tl.init_caches(cfg, 2, device=device))
+        err = rel_err(fused, chunked)
+        print(f"[stacked] fused chunked prefill, B=2 T={FUSED_T} chunk {PREFILL_CHUNK}: logits "
+              f"rel err vs make_chunked_prefill {err:.3e} (gate {LOGITS_TOL})")
+        check(bool(torch.isfinite(fused).all()) and fused_c.k_q.shape[0] == cfg.n_layers,
+              "fused prefill: bad output")
+        check(err <= LOGITS_TOL, f"fused prefill disagrees with the chunked one: {err}")
+        del fused_c
+
+        prompts = batcher_prompts(cfg)[0]
+        before = {k: getattr(mod, name) for k, (mod, name) in counters().items()}
+        outs, secs, _, _ = serve(cfg, weights, prompts, stacked_kv=True)  # zeroes the counts
+        same = outs == batcher["i slab auto"]["outs"]
+        n_tok = sum(len(o) for o in outs.values())
+        print(f"[stacked] batcher run (i) with stacked_kv: {n_tok} tokens in {secs:.2f} s, "
+              f"{n_tok / secs:.1f} tok/s delivered (host clock); run (i)'s tokens {same}")
+        check(same, "the stacked batcher's tokens differ from run (i)'s")
+        launches = {k: before[k] + getattr(mod, name) for k, (mod, name) in counters().items()}
+        tps = stacked_decode_rate(cfg, weights, device)
+    finally:
+        tl.flash_decode_attention = decode
+    n_layer = sum(c is not None for c in layer_calls)
+    print(f"[stacked] flash decode calls with layer=: {n_layer} of {len(layer_calls)}; launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items() if v))
+    check(n_layer > 0, "no flash decode call read a stacked cache (layer=)")
+    for k in ("dequant_mm", "flash_decode", "flash_prefill"):
+        check(launches[k] > 0, f"stacked phase: {k} did not launch")
+    return launches, tps
+
+
+def stacked_decode_rate(cfg, weights, device):
+    """B=1 decode over a STACKED_CONTEXT-token context, flash attention:
+    the kernels one step launches (tuple and stacked must match), the
+    memory a stacked step allocates (below one layer's plane: nothing
+    copies the cache), and decode tok/s of each container in turns."""
+    import tpu_lutvq_torch.models.llama as tl
+    from tpu_lutvq_torch.runtime.generate import bucket_window, make_chunked_prefill
+
+    ids = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, STACKED_CONTEXT), generator=ids).to(device)
+    logits, tup = make_chunked_prefill(cfg, chunk=PREFILL_CHUNK)(
+        weights, prompt, tl.init_caches(cfg, 1, device=device))
+    stacked = tl.KVCache(*(torch.stack(planes) for planes in zip(*tup)))
+    tok = logits.argmax(-1).to(torch.int32)
+    window = bucket_window(STACKED_CONTEXT + STACKED_STEPS, cfg.max_seq)
+
+    def step(caches, pos):
+        return tl.llama_decode_step(cfg, weights, tok, caches, pos, attn="flash", window=window)
+
+    ks_tup = launched_kernels(lambda: step(tup, STACKED_CONTEXT), calls=2)
+    ks_stk = launched_kernels(lambda: step(stacked, STACKED_CONTEXT), calls=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(stacked, STACKED_CONTEXT)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    plane = nbytes(stacked.k_q[0])
+    print(f"[stacked] B=1 decode step at {STACKED_CONTEXT} tokens: {sum(ks_stk.values())} "
+          f"kernels stacked, {sum(ks_tup.values())} tuple, same kernels "
+          f"{ks_stk == ks_tup}; a stacked step allocates {grew / 2**20:.2f} MiB (one layer's "
+          f"K plane {plane / 2**20:.0f} MiB)")
+    check(ks_stk == ks_tup, f"a stacked step launches other kernels: {ks_stk} vs {ks_tup}")
+    check(grew < plane, "a stacked decode step allocates a layer's plane: the cache is copied")
+
+    def rate(caches):
+        def run():
+            for i in range(STACKED_STEPS):
+                step(caches, STACKED_CONTEXT + i)
+        _, secs = timed(run)
+        return STACKED_STEPS / secs
+
+    tps = {"tuple": [], "stacked": []}
+    for name in ("tuple", "stacked", "stacked", "tuple"):
+        tps[name].append(rate(tup if name == "tuple" else stacked))
+    print(f"[stacked] decode tok/s B=1 context {STACKED_CONTEXT}, {STACKED_STEPS} steps, "
+          f"flash: tuple {tps['tuple'][0]:.1f}/{tps['tuple'][1]:.1f}, stacked "
+          f"{tps['stacked'][0]:.1f}/{tps['stacked'][1]:.1f} (host clock, turns tuple, stacked, "
+          "stacked, tuple)")
+    return tps
 
 
 def fast_step_errors(cfg, weights, caches, tok, pos):
@@ -2712,7 +3015,8 @@ class GuardBands:
 
 
 def phase_guarded(device):
-    """Phases 2, 3, 4, 6 and 7 with the kernel wrappers' buffers in guard bands."""
+    """Phases 2 (its shapes rows too), 3, 4, 6 and 7 with the kernel
+    wrappers' buffers in guard bands."""
     mods = [importlib.import_module(f"tpu_lutvq_torch.kernels.{m}")
             for m in ("lut_gemv", "dequant_mm", "flash_decode", "flash_prefill")]
     global GUARDING
@@ -2721,7 +3025,8 @@ def phase_guarded(device):
         m.torch = bands
     GUARDING = True
     try:
-        for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers, phase_nibbles):
+        for phase in (phase_kernels, phase_attention, phase_tables, phase_tiers, phase_nibbles,
+                      phase_shapes):
             phase(device)
             bands.check(phase.__name__)
         cfg, weights = model(device)
@@ -2796,6 +3101,9 @@ def main(mode=None):
         rows.setdefault(name, []).extend(rs)
     rows.update(run_phase("phase 2 tiers", phase_tiers, device))
     rows.update(run_phase("phase 2 nibbles", phase_nibbles, device))
+    for name, rs in run_phase("phase 2 shapes", phase_shapes, device).items():
+        rows[name].extend(rs)
+    report_2x8_times(rows)
     run_phase("routes", phase_routes, device)
     run_phase("native", phase_native)
     cfg, weights = model(device)
@@ -2804,6 +3112,7 @@ def main(mode=None):
     for name, run in LAUNCHES_FROM.items():
         launches[name] = batcher[run]["launches"][name]
     launches.update(run_phase("phase 6", phase_tier_runs, device, cfg, weights, batcher))
+    run_phase("stacked", phase_stacked, device, cfg, weights, batcher)
     del weights, batcher
     torch.cuda.empty_cache()
     launches.update(run_phase("phase 5", phase_ann, device))

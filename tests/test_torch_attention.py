@@ -124,8 +124,15 @@ def test_decode_window_truncation_raises():
     q = torch.zeros((1, 1, 64))
     with pytest.raises(ValueError, match="truncates attention"):
         t_decode(q, *tkv, torch.tensor([300], dtype=torch.int32), window=256)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        t_decode(q, *tkv, torch.tensor([3], dtype=torch.int32), window=256, layer=0)
+    # layer= reads layer 1 of a stacked (L=2) copy: the same answer, the
+    # same truncation check
+    stacked = [torch.stack([torch.zeros_like(t), t]) for t in tkv]
+    q = torch.from_numpy(rng.standard_normal((1, 1, 64)).astype(np.float32))
+    pos = torch.tensor([3], dtype=torch.int32)
+    assert torch.equal(t_decode(q, *stacked, pos, window=256, layer=1),
+                       t_decode(q, *tkv, pos, window=256))
+    with pytest.raises(ValueError, match="truncates attention"):
+        t_decode(q, *stacked, torch.tensor([300], dtype=torch.int32), window=256, layer=1)
 
 
 @pytest.mark.parametrize("rep", [1, 2])

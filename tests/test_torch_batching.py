@@ -185,11 +185,17 @@ def test_unported_options_raise(tiny32):
                dict(cache_factory=tl.init_caches), dict(paged_cache_factory=lambda *a: None)):
         with pytest.raises(NotImplementedError, match="dist/"):
             ContinuousBatcher(tcfg, tw, n_slots=2, **kw)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        ContinuousBatcher(tcfg, tw, n_slots=2, stacked_kv=True)
-    with pytest.raises(NotImplementedError, match="stacked_kv"):
-        tg.generate(tcfg, tw, [[1, 2]], 2, stacked_kv=True)
-    with pytest.raises(NotImplementedError, match="stacked"):
+    # stacked_kv is ported: it refuses what the reference refuses (a paged
+    # pool, injected programs), serves otherwise, and one layer's 4-d cache
+    # is no stacked container
+    with pytest.raises(ValueError, match="slab cache"):
+        ContinuousBatcher(tcfg, tw, n_slots=2, stacked_kv=True, paged_blocks=8)
+    with pytest.raises(ValueError, match="injected"):
+        ContinuousBatcher(tcfg, tw, n_slots=2, stacked_kv=True, step_fn=lambda *a: None)
+    assert ContinuousBatcher(tcfg, tw, n_slots=2, stacked_kv=True).caches.k_q.shape[:2] == (1, 2)
+    assert torch.equal(tg.generate(tcfg, tw, [[1, 2]], 2, stacked_kv=True).tokens,
+                       tg.generate(tcfg, tw, [[1, 2]], 2).tokens)
+    with pytest.raises(ValueError, match="stacked cache has leaves"):
         tl.llama_forward(tcfg, tw, torch.tensor([[1, 2]]), tl.init_caches(tcfg, 1, device="cpu")[0], 0)
     with pytest.raises(ValueError, match="chunk"):
         make_chunked_prefill(tcfg, chunk=0)

@@ -64,7 +64,9 @@ def test_report_prints_seven_rows_and_a_total(model):
 def test_text_prompts_and_the_stacked_cache_are_refused(tiny_ckpt):
     out = cli("generate", "--ckpt", tiny_ckpt, "--prompt", "hello", "--device", "cpu", ok=False)
     assert "--tokens" in out.stderr and out.returncode == 2
-    out = cli("generate", "--ckpt", tiny_ckpt, "--tokens", "1", "--stacked-kv", "--device", "cpu",
-              ok=False)
-    assert "NotImplementedError" in out.stderr
-    assert "the stacked and hybrid cache container" in out.stderr
+    # --stacked-kv serves now: the tuple caches' tokens
+    stacked = cli("generate", "--ckpt", tiny_ckpt, "--tokens", "1", "--stacked-kv", "--device",
+                  "cpu", "--max-new-tokens", "4")
+    plain = cli("generate", "--ckpt", tiny_ckpt, "--tokens", "1", "--device", "cpu",
+                "--max-new-tokens", "4")
+    assert stacked.stdout == plain.stdout and len(stacked.stdout.split(",")) == 4

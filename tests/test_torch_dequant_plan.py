@@ -60,8 +60,9 @@ def check_cover(plan):
 def test_bf16x2_plan_covers_d_in(rows, d_in, d_out, shared):
     plan = tdq.plan_bf16x2(rows, d_in // 8, d_out, shared, H100_SMS)
     check_cover(plan)
-    assert plan.step == (8 if shared else 2)
-    assert plan.steps * plan.step >= d_in // 8 > (plan.steps - 1) * plan.step
+    # k-steps count inputs: 8 subvectors of 8 (shared), 2 (per subvector)
+    assert plan.step == (64 if shared else 16)
+    assert plan.steps * plan.step >= d_in > (plan.steps - 1) * plan.step
     cols, row_tiles, splits = plan.grid
     assert cols * plan.block_cols >= d_out and row_tiles * plan.block_rows >= rows
     assert splits == plan.n_splits
@@ -89,8 +90,8 @@ def test_i8_plan_covers_d_in(rows, d_in, d_out, shared):
     splits a tile, the tile chosen by rows as the bf16x2 kernel's."""
     plan = tdq.plan_i8(rows, d_in // 8, d_out, shared, H100_SMS, 8)
     check_cover(plan)
-    assert plan.step == (16 if shared else 4)
-    assert plan.steps * plan.step >= d_in // 8 > (plan.steps - 1) * plan.step
+    assert plan.step == (128 if shared else 32)
+    assert plan.steps * plan.step >= d_in > (plan.steps - 1) * plan.step
     assert 1 <= plan.n_splits <= 8
     cols, row_tiles, splits = plan.grid
     assert cols * plan.block_cols >= d_out and row_tiles * plan.block_rows >= rows
@@ -99,7 +100,7 @@ def test_i8_plan_covers_d_in(rows, d_in, d_out, shared):
     # inside the padded row
     cfg = tcore.aqlm_2x8(d_in)
     assert tdq.i8_padded_subvec(cfg) * 8 % 128 == 0
-    assert plan.steps * plan.step <= tdq.i8_padded_subvec(cfg)
+    assert plan.steps * plan.step <= tdq.i8_padded_subvec(cfg) * 8
 
 
 def test_i8_decode_rows_split_in_one_cluster():
@@ -118,9 +119,11 @@ def i8_split_sum(cfg, pk, x, plan):
     x_i8, xs = tdq.fold_i8(cfg, x, s)
     w = tdq.weight_i8(cfg, pk, q).long()  # (d_out, N, M, d)
     acc = torch.zeros((x.shape[0], pk.d_out), dtype=torch.int64)
-    for a, b in plan.split_ranges():
-        m0, m1 = a * plan.step, min(cfg.n_subvec, b * plan.step)
-        acc += torch.einsum("rnmd,jnmd->rj", x_i8[:, :, m0:m1].long(), w[:, :, m0:m1])
+    x_in = x_i8[:, :, : cfg.n_subvec].reshape(x.shape[0], cfg.n_codebook, -1).long()
+    w_in = w.reshape(pk.d_out, cfg.n_codebook, -1)
+    for a, b in plan.split_ranges():  # k-steps of plan.step inputs
+        e0, e1 = a * plan.step, min(cfg.d_in, b * plan.step)
+        acc += torch.einsum("rne,jne->rj", x_in[:, :, e0:e1], w_in[:, :, e0:e1])
     assert int(acc.abs().max()) < 2**31  # the kernel's int32 holds it
     return acc.int().float() * xs[:, None] * pk.scales[:, : pk.d_out]
 
@@ -162,7 +165,7 @@ def test_decode_rows_fill_the_card():
 
 @pytest.mark.parametrize("sms", [1, 8, 132])
 def test_split_short_d_in_keeps_min_steps(sms):
-    plan = tdq.plan_bf16x2(8, 16, 128, True, sms)  # two k-steps of 8 subvectors
+    plan = tdq.plan_bf16x2(8, 16, 128, True, sms)  # two k-steps of 64 inputs
     check_cover(plan)
     assert plan.n_splits == 1
     plan = tdq.plan_f32(8, 48, 128, sms)  # three 16-input steps
@@ -198,7 +201,7 @@ def test_bf16x2_split_reduce_matches_plain(rows, sms):
     x = torch.from_numpy(x)
     plan = tdq.plan_bf16x2(rows, cfg.n_subvec, pk.d_out, True, sms)
     w = tdq.dequant_weight(cfg, pk)
-    got = split_reduce(x.to(torch.bfloat16).float(), w, pk.scales[:, : pk.d_out], plan, 8)
+    got = split_reduce(x.to(torch.bfloat16).float(), w, pk.scales[:, : pk.d_out], plan, 1)
     want = tdq.dequant_mm_plain(cfg, pk, x)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= F32_TOL

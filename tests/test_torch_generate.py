@@ -131,8 +131,12 @@ def test_generate_rejects_overflow_and_stacked(tiny):
     _, _, tcfg, tw = tiny
     with pytest.raises(ValueError, match="max_seq"):
         tg.generate(tcfg, tw, torch.zeros((1, 30), dtype=torch.int32), max_new_tokens=10)
-    with pytest.raises(NotImplementedError):
-        tg.generate(tcfg, tw, [[1, 2]], max_new_tokens=2, stacked_kv=True)
+    with pytest.raises(ValueError, match="max_seq"):
+        tg.generate(tcfg, tw, torch.zeros((1, 30), dtype=torch.int32), max_new_tokens=10,
+                    stacked_kv=True)
+    # stacked_kv is ported: the tuple caches' tokens
+    assert torch.equal(tg.generate(tcfg, tw, [[1, 2]], max_new_tokens=2, stacked_kv=True).tokens,
+                       tg.generate(tcfg, tw, [[1, 2]], max_new_tokens=2).tokens)
 
 
 def test_port_imports_without_jax():

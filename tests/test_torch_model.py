@@ -154,13 +154,21 @@ def test_init_llama_on_generator_device():
 
 def test_stacked_caches_and_flash_attention_not_ported(golden_model):
     _, _, tcfg, tw = golden_model
-    """Stacked caches still raise.  ``attn="flash"`` is ported now: its
-    prefill logits agree with the einsum path's within test_flash.py's 2e-2
-    (other rounding points: per-block softmax, p rounded before scaling)."""
+    """Stacked caches are ported: one stacked cache (hybrid mode) gives the
+    tuple caches' logits and rows bit for bit, and one layer's 4-d cache is
+    refused as a container.  ``attn="flash"``: its prefill logits agree
+    with the einsum path's within test_flash.py's 2e-2 (other rounding
+    points: per-block softmax, p rounded before scaling)."""
     caches = tl.init_caches(tcfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="stacked cache has leaves"):
         tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), caches[0], 0)
     kw = dict(strategy="lut_gemv", variant="f32")
+    tup, tup_c = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1, device="cpu"), 0,
+                                  **kw)
+    hyb, hyb_c = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS),
+                                  tl.init_stacked_caches(tcfg, 1, device="cpu"), 0, **kw)
+    assert torch.equal(tup, hyb)
+    assert all(torch.equal(a, b[i]) for i, c in enumerate(tup_c) for a, b in zip(c, hyb_c))
     flash, _ = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), caches, 0, attn="flash", **kw)
     xla, _ = tl.llama_forward(tcfg, tw, torch.tensor(TOKENS), tl.init_caches(tcfg, 1, device="cpu"), 0,
                               attn="xla", **kw)

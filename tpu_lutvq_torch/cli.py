@@ -86,7 +86,8 @@ def main(argv=None) -> None:
                    help="nucleus sampling mass in (0, 1); 0 disables")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--stacked-kv", action="store_true",
-                   help="the stacked and hybrid cache container (not ported: raises)")
+                   help="serve one stacked (L, ...) KV cache (the hybrid container; a "
+                        "stacked checkpoint runs the scan mode)")
     g.add_argument(
         "--one-x16", dest="one_x16", default="dequant",
         choices=["dequant", "chunked", "refit"],

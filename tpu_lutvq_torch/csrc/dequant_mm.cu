@@ -1,4 +1,5 @@
-// Fused dequant-matmul for AQLM 2x8 (bf16 codebooks) on Hopper (sm_90a).
+// Fused dequant-matmul with bf16 tables (AQLM 2x8 and every other even
+// d_subvec and codebook count) on Hopper (sm_90a).
 //
 // Replaces tpu_lutvq/kernels/dequant_mm.py::_dequant_mm_bf16x2_kernel and
 // its VMEM-split twin ::_dequant_mm_bf16x2_kernel_v3.  Both compute
@@ -349,22 +350,369 @@ int launch(const void* x, const void* codes, const void* cb, int cb_dtype, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- every other even d_subvec and codebook count (the general instances) --
+//
+// The instances above are the 2x8 serving path (d_subvec 8, N <= 2).  Every
+// other layer JAX's dequant_matmul takes with bf16x2 tables (even d_subvec,
+// any N, K <= 256, shared or per-subvector codebooks: AQLM group 16, PQ,
+// RQ, an unpacked T-MAC layer) runs this template, the same design with the
+// stage's unit in INPUTS: one k16 step (16 inputs) and a group of up to kGrp
+// codebooks a stage, so at d_subvec < 16 a stage spans 16/d subvectors and
+// at d_subvec >= 16 a subvector spans d/16 stages that read the same code.
+// - A thread's four MMA inputs are the step's inputs 4tig..4tig+3, as above.
+//   At d % 4 == 0 they lie in one subvector: one code and one 8-byte load of
+//   one codebook row.  At d % 4 == 2 (kPair) they fall on two subvectors:
+//   two codes and two 4-byte loads.
+// - A shared codebook of at most kStagedMax bytes (bf16) is staged once a
+//   block, rounded as it is staged (kStaged).  A larger one (RQ: 4 x 256 x
+//   128 bf16 = 256 KiB, over a block's 227 KB) and per-subvector ones ride
+//   the ring: a stage carries its 16 inputs' d-chunk of every codebook row
+//   of its group, [g][K][16] bf16 (8 KiB a codebook at K = 256), so no
+//   codebook has to fit.
+// - Codebook counts above kGrp loop over groups inside the ring (stage t is
+//   k-step t / n_grp, group t % n_grp): N is a runtime loop, so one instance
+//   serves every N, its stages sized for g = min(N, kGrp) codebooks (fewer
+//   bytes a stage, more blocks an SM, at N = 1 or 2).
+// - Split-K and the reduce are the instances' above; the plan
+//   (plan_bf16x2) counts 16-input k-steps, and a split may start inside a
+//   subvector (every stage loads the codes of the subvectors it touches).
+// The inputs past the real ones of a step (d_in's or a split's end) read
+// zero x; their A values come from a real input of the step, so a codebook
+// row past K is never read and no NaN reaches the sum.
+
+constexpr int kAnyBK = 16;             // inputs a stage: one k16 step
+constexpr int kGrp = 4;                // codebooks a stage
+constexpr int kSubRows = 9;            // subvectors 16 inputs can touch at even d
+constexpr int kStagedMax = 64 * 1024;  // a shared codebook up to this is staged once
+constexpr int kMaxSmem = 232448;       // a block's shared memory on the H100
+
+template <int kWarps_, int kNT_, bool kXf32_, bool kStaged_, bool kPair_>
+struct AnyTile {
+  static constexpr int kWarps = kWarps_, kNT = kNT_;
+  static constexpr bool kXf32 = kXf32_, kStaged = kStaged_, kPair = kPair_;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBN = kWarps * kWarpCols;
+  static constexpr int kBM = kNT * 8;
+  static constexpr int kStages = kStaged ? 4 : 3;
+  static constexpr int kXElt = kXf32 ? 4 : 2;
+  static constexpr int kCLd = kBN + 32;
+  static constexpr int kXBytes = kBM * kAnyBK * kXElt;
+  // a stage holds g = min(N, kGrp) codebooks' code rows and slab
+  __host__ __device__ static int code_bytes(int g) { return g * kSubRows * kCLd; }
+  static int slab_bytes(int g, int K) { return kStaged ? 0 : g * K * kAnyBK * 2; }
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// Element i of a codebook stored f32 (0), fp16 (1) or bf16 (2), as bf16 bits
+// (round to nearest even, as torch's cast).
+__device__ __forceinline__ uint16_t cb_elt_bf16(const void* cb, int i, int dtype) {
+  if (dtype == 2) return static_cast<const uint16_t*>(cb)[i];
+  const float f = dtype == 1 ? __half2float(static_cast<const __half*>(cb)[i])
+                             : static_cast<const float*>(cb)[i];
+  const __nv_bfloat16 b = __float2bfloat16_rn(f);
+  return *reinterpret_cast<const uint16_t*>(&b);
+}
+
+// x: (R, d_in) f32 (kXf32) or bf16, d_in = M * D, D even
+// cb: staged: (1, N, K, D) in cb_dtype; streamed: (1 or M, N, K, D) bf16
+// Split z walks inputs [z * k_split, (z + 1) * k_split), k_split % 16 == 0.
+template <class T>
+__global__ void __launch_bounds__(T::kThreads)
+dequant_mm_any(const void* __restrict__ x, const uint8_t* __restrict__ codes,
+               const void* __restrict__ cb, int cb_dtype, int cb_shared,
+               const float* __restrict__ scales, float* __restrict__ out,
+               float* __restrict__ part, int R, int M, int N, int K, int D, int d_out,
+               int d_out_pad, int k_split, int cb_bytes, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* cbs = reinterpret_cast<uint16_t*>(smem);
+  unsigned char* ring = smem + cb_bytes;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * T::kBN, row0 = blockIdx.y * T::kBM;
+  const int d_in = M * D;
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(d_in, k_begin + k_split);
+  const int n_grp = (N + kGrp - 1) / kGrp;
+  const int n_steps = (k_end - k_begin + kAnyBK - 1) / kAnyBK * n_grp;
+  const int code_bytes = T::code_bytes(min(N, kGrp));
+  const bool x16 = (d_in * T::kXElt) % 16 == 0;  // x rows start 16-byte aligned
+  const unsigned char* xb = static_cast<const unsigned char*>(x);
+
+  auto load_stage = [&](int slot, int t) {
+    unsigned char* st = ring + slot * stage_bytes;
+    const int kstep = t / n_grp, g = t - kstep * n_grp;
+    const int k0 = k_begin + kstep * kAnyBK, kl = min(k_end, k0 + kAnyBK);
+    const int n0 = g * kGrp, ng = min(kGrp, N - n0);
+    const int m_lo = k0 / D, nsub = (kl - 1) / D + 1 - m_lo;
+    constexpr int kCChunks = T::kBN / 16;
+    for (int i = tid; i < ng * nsub * kCChunks; i += T::kThreads) {
+      const int row = i / kCChunks, c = i - row * kCChunks;
+      const int nl = row / nsub, j = row - nl * nsub;
+      const int col = col0 + c * 16;
+      const bool ok = col < d_out_pad;
+      cp_async16(st + (nl * kSubRows + j) * T::kCLd + c * 16,
+                 ok ? codes + static_cast<size_t>((n0 + nl) * M + m_lo + j) * d_out_pad + col
+                    : codes,
+                 ok);
+    }
+    unsigned char* xs = st + code_bytes;
+    if (x16) {
+      constexpr int kPer = 16 / T::kXElt, kChunks = kAnyBK / kPer;
+      for (int i = tid; i < T::kBM * kChunks; i += T::kThreads) {
+        const int r = i / kChunks, c = i - r * kChunks;
+        const int e = k0 + c * kPer;
+        const bool ok = row0 + r < R && e < kl;
+        cp_async16(xs + (r * kAnyBK + c * kPer) * T::kXElt,
+                   ok ? xb + (static_cast<size_t>(row0 + r) * d_in + e) * T::kXElt : xb, ok);
+      }
+    } else {
+      constexpr int kPer = 4 / T::kXElt, kChunks = kAnyBK / kPer;
+      for (int i = tid; i < T::kBM * kChunks; i += T::kThreads) {
+        const int r = i / kChunks, c = i - r * kChunks;
+        const int e = k0 + c * kPer;
+        const bool ok = row0 + r < R && e < kl;
+        cp_async4(xs + (r * kAnyBK + c * kPer) * T::kXElt,
+                  ok ? xb + (static_cast<size_t>(row0 + r) * d_in + e) * T::kXElt : xb, ok);
+      }
+    }
+    if constexpr (!T::kStaged) {
+      uint16_t* slab = reinterpret_cast<uint16_t*>(xs + T::kXBytes);  // [g][K][16]
+      const uint16_t* src = static_cast<const uint16_t*>(cb);
+      // codebook element (m, n, k, w), m = 0 for a shared codebook
+      auto at = [&](int e, int n, int k) {
+        const int m = e / D;
+        return (static_cast<size_t>((cb_shared ? 0 : m) * N + n) * K + k) * D + (e - m * D);
+      };
+      if (D % 8 == 0) {  // two 16-byte runs of 8 inputs a codebook row
+        for (int i = tid; i < ng * K * 2; i += T::kThreads) {
+          const int h = i & 1, row = i >> 1, nl = row / K;
+          const int e = k0 + 8 * h;
+          const bool ok = e < kl;
+          cp_async16(slab + row * kAnyBK + 8 * h, ok ? src + at(e, n0 + nl, row - nl * K) : src,
+                     ok);
+        }
+      } else {  // eight 4-byte runs of 2 inputs
+        for (int i = tid; i < ng * K * 8; i += T::kThreads) {
+          const int p = i & 7, row = i >> 3, nl = row / K;
+          const int e = k0 + 2 * p;
+          const bool ok = e < kl;
+          cp_async4(slab + row * kAnyBK + 2 * p, ok ? src + at(e, n0 + nl, row - nl * K) : src,
+                    ok);
+        }
+      }
+    }
+  };
+
+  if constexpr (T::kStaged) {
+    for (int i = tid; i < N * K * D; i += T::kThreads) cbs[i] = cb_elt_bf16(cb, i, cb_dtype);
+  }
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  float acc[2][T::kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait<T::kStages - 2>();
+    __syncthreads();
+    const int tn = t + T::kStages - 1;
+    if (tn < n_steps) load_stage(tn % T::kStages, tn);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (t % T::kStages) * stage_bytes;
+    const unsigned char* xs = st + code_bytes;
+    const uint16_t* slab = reinterpret_cast<const uint16_t*>(xs + T::kXBytes);
+    const int kstep = t / n_grp, g = t - kstep * n_grp;
+    const int k0 = k_begin + kstep * kAnyBK, kl = min(k_end, k0 + kAnyBK);
+    const int n0 = g * kGrp, ng = min(kGrp, N - n0);
+    const int m_lo = k0 / D;
+    uint32_t b[T::kNT][2];
+#pragma unroll
+    for (int nt = 0; nt < T::kNT; ++nt) {
+      const int r = nt * 8 + gid;
+      if constexpr (T::kXf32) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + (r * kAnyBK + 4 * tig) * 4);
+        b[nt][0] = pack_bf16(v.x, v.y);
+        b[nt][1] = pack_bf16(v.z, v.w);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(xs + (r * kAnyBK + 4 * tig) * 2);
+        b[nt][0] = v.x;
+        b[nt][1] = v.y;
+      }
+    }
+    const unsigned char* crow = st + warp * kWarpCols + 4 * gid;
+    for (int nl = 0; nl < ng; ++nl) {
+      const int n = n0 + nl;
+      const uint16_t* cbn = T::kStaged ? cbs + static_cast<size_t>(n) * K * D
+                                       : slab + nl * K * kAnyBK;
+      const int stride = T::kStaged ? D : kAnyBK;
+      if constexpr (!T::kPair) {
+        const int i = min(k0 + 4 * tig, kl - 4);  // a real input of the step
+        const int m = i / D;
+        const uint32_t cw =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m - m_lo) * T::kCLd);
+        const uint16_t* base = cbn + (T::kStaged ? i - m * D : i - k0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t lo = (cw >> (16 * mt)) & 0xffu, hi = (cw >> (16 * mt + 8)) & 0xffu;
+          const uint2 wl = *reinterpret_cast<const uint2*>(base + lo * stride);
+          const uint2 wh = *reinterpret_cast<const uint2*>(base + hi * stride);
+          const uint32_t a[4] = {wl.x, wh.x, wl.y, wh.y};
+#pragma unroll
+          for (int nt = 0; nt < T::kNT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+        }
+      } else {
+        const int i0 = min(k0 + 4 * tig, kl - 2), i1 = min(k0 + 4 * tig + 2, kl - 2);
+        const int m0 = i0 / D, m1 = i1 / D;
+        const uint32_t cw0 =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m0 - m_lo) * T::kCLd);
+        const uint32_t cw1 =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m1 - m_lo) * T::kCLd);
+        const uint16_t* b0 = cbn + (T::kStaged ? i0 - m0 * D : i0 - k0);
+        const uint16_t* b1 = cbn + (T::kStaged ? i1 - m1 * D : i1 - k0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t lo0 = (cw0 >> (16 * mt)) & 0xffu, hi0 = (cw0 >> (16 * mt + 8)) & 0xffu;
+          const uint32_t lo1 = (cw1 >> (16 * mt)) & 0xffu, hi1 = (cw1 >> (16 * mt + 8)) & 0xffu;
+          const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(b0 + lo0 * stride),
+                                 *reinterpret_cast<const uint32_t*>(b0 + hi0 * stride),
+                                 *reinterpret_cast<const uint32_t*>(b1 + lo1 * stride),
+                                 *reinterpret_cast<const uint32_t*>(b1 + hi1 * stride)};
+#pragma unroll
+          for (int nt = 0; nt < T::kNT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int c = col0 + warp * kWarpCols + 4 * gid;
+#pragma unroll
+  for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+      const int r = row0 + nt * 8 + 2 * tig + odd;
+      if (r >= R) continue;
+      float v[4] = {acc[0][nt][odd], acc[0][nt][2 + odd], acc[1][nt][odd],
+                    acc[1][nt][2 + odd]};
+      if (gridDim.z > 1) {
+        if (c < d_out_pad)
+          *reinterpret_cast<float4*>(
+              part + (static_cast<size_t>(blockIdx.z) * R + r) * d_out_pad + c) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        continue;
+      }
+      if (scales != nullptr)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] *= scales[min(c + i, d_out_pad - 1)];
+      float* o = out + static_cast<size_t>(r) * d_out + c;
+      if ((d_out & 3) == 0 && c + 3 < d_out) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (c + i < d_out) o[i] = v[i];
+      }
+    }
+}
+
+template <class T>
+int launch_any(const void* x, const void* codes, const void* cb, int cb_dtype, int cb_shared,
+               const void* scales, void* out, void* part, int R, int M, int N, int K, int D,
+               int d_out, int d_out_pad, int k_split, int n_splits, cudaStream_t stream) {
+  if (k_split % kAnyBK != 0 || (!T::kStaged && cb_dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cb_bytes = T::kStaged ? (N * K * D * 2 + 15) / 16 * 16 : 0;
+  const int g = N < kGrp ? N : kGrp;
+  const int stage_bytes = T::code_bytes(g) + T::kXBytes + T::slab_bytes(g, K);
+  const int smem = cb_bytes + T::kStages * stage_bytes;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dequant_mm_any<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  dim3 grid((d_out + T::kBN - 1) / T::kBN, (R + T::kBM - 1) / T::kBM, n_splits);
+  dequant_mm_any<T><<<grid, T::kThreads, smem, stream>>>(
+      x, static_cast<const uint8_t*>(codes), cb, cb_dtype, cb_shared,
+      static_cast<const float*>(scales), static_cast<float*>(out), static_cast<float*>(part),
+      R, M, N, K, D, d_out, d_out_pad, k_split, cb_bytes, stage_bytes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
+  const size_t n_out = static_cast<size_t>(R) * d_out;
+  dequant_mm_reduce<<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const float*>(scales),
+      static_cast<float*>(out), R, d_out, d_out_pad, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStaged, bool kPair>
+int launch_any_config(int config, const void* x, const void* codes, const void* cb,
+                      int cb_dtype, int cb_shared, const void* scales, void* out, void* part,
+                      int R, int M, int N, int K, int D, int d_out, int d_out_pad, int k_split,
+                      int n_splits, cudaStream_t stream) {
+#define LUTVQ_DQA_ARGS x, codes, cb, cb_dtype, cb_shared, scales, out, part, R, M, N, K, D, \
+                       d_out, d_out_pad, k_split, n_splits, stream
+  switch (config) {
+    case 0: return launch_any<AnyTile<4, 1, true, kStaged, kPair>>(LUTVQ_DQA_ARGS);
+    case 1: return launch_any<AnyTile<4, 2, true, kStaged, kPair>>(LUTVQ_DQA_ARGS);
+    case 2: return launch_any<AnyTile<8, 8, false, kStaged, kPair>>(LUTVQ_DQA_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LUTVQ_DQA_ARGS
+}
+
 }  // namespace
 
 // config (kernels/dequant_mm.py::plan_bf16x2): 0 = 8 rows a block, 1 = 16
 // rows (x f32, 4 warps), 2 = 64 rows (x bf16, 8 warps).  cb_dtype 0 f32, 1
-// fp16, 2 bf16 (a per-subvector codebook must be bf16).  n_splits > 1 needs
-// part, (n_splits, R, d_out_pad) f32; every split must hold a subvector.
+// fp16, 2 bf16 (a streamed codebook, per-subvector or a shared one over
+// kStagedMax bytes, must be bf16).  n_splits > 1 needs part, (n_splits, R,
+// d_out_pad) f32; every split must hold an input.  Split z takes inputs
+// [z * k_split, (z + 1) * k_split): d_subvec 8 with N <= 2 runs the 2x8
+// instances (k_split a whole stage of subvectors), every other even
+// d_subvec and N the general ones (k_split % 16 == 0).
 extern "C" int lutvq_dequant_mm(const void* x, const void* codes, const void* cb,
                                 const void* scales, void* out, void* part, int R, int M, int N,
-                                int K, int cb_shared, int cb_dtype, int config, int d_out,
-                                int d_out_pad, int m_split, int n_splits, void* stream_ptr) {
-  if (N < 1 || N > kNMax || K < 1 || K > kKMax || cb_dtype < 0 || cb_dtype > 2 ||
+                                int K, int D, int cb_shared, int cb_dtype, int config,
+                                int d_out, int d_out_pad, int k_split, int n_splits,
+                                void* stream_ptr) {
+  const long d_in = static_cast<long>(M) * D;
+  if (N < 1 || K < 1 || K > kKMax || D < 2 || D % 2 != 0 || cb_dtype < 0 || cb_dtype > 2 ||
       (!cb_shared && cb_dtype != 2) || d_out_pad % 16 != 0 || d_out > d_out_pad ||
-      m_split < 1 || n_splits < 1 || static_cast<long>(m_split) * n_splits < M ||
-      static_cast<long>(m_split) * (n_splits - 1) >= M || (n_splits > 1 && part == nullptr))
+      k_split < 1 || n_splits < 1 || static_cast<long>(k_split) * n_splits < d_in ||
+      static_cast<long>(k_split) * (n_splits - 1) >= d_in || (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (D != kSub || N > kNMax) {
+    const bool staged = cb_shared && N * K * D * 2 <= kStagedMax;
+#define LUTVQ_DQA_ARGS config, x, codes, cb, cb_dtype, cb_shared, scales, out, part, R, M, N, \
+                       K, D, d_out, d_out_pad, k_split, n_splits, stream
+    if (D % 4 == 0)
+      return staged ? launch_any_config<true, false>(LUTVQ_DQA_ARGS)
+                    : launch_any_config<false, false>(LUTVQ_DQA_ARGS);
+    return staged ? launch_any_config<true, true>(LUTVQ_DQA_ARGS)
+                  : launch_any_config<false, true>(LUTVQ_DQA_ARGS);
+#undef LUTVQ_DQA_ARGS
+  }
+  if (k_split % kSub != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int m_split = k_split / kSub;
 #define LUTVQ_DQ_ARGS x, codes, cb, cb_dtype, scales, out, part, R, M, N, K, d_out, d_out_pad, \
                       m_split, n_splits, stream
   switch (config * 2 + (cb_shared ? 1 : 0)) {

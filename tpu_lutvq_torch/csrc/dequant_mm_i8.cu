@@ -1,4 +1,5 @@
-// W8A8 dequant-matmul (quality="fast") on Hopper (sm_90a), and the fold
+// W8A8 dequant-matmul (quality="fast", every d_subvec % 4 == 0 and codebook
+// count) on Hopper (sm_90a), and the fold
 // that prepares its int8 activations.
 //
 // Replaces tpu_lutvq/kernels/dequant_mm.py::_dequant_mm_i8_kernel and its
@@ -392,6 +393,309 @@ int launch_d(int config, bool shared, const void* x, const void* xs, const void*
 #undef LUTVQ_I8_ARGS
 }
 
+// ---- every other d_subvec % 4 == 0 and codebook count (the general instances) --
+//
+// The instances above take d_subvec 4, 8 and 16 with N <= 2: their stage is
+// kMS = kBK / D whole subvectors, none at all once D > kBK.  Every other
+// layer JAX's dequant_matmul takes with i8 tables (d_subvec % 4 == 0, any
+// N, K <= 256: RQ's d_subvec 128 with N = 4, an unpacked T-MAC layer's N =
+// 4) runs this template, the same design with the stage's unit in INPUTS:
+// one k32 step (32 inputs) and a group of up to kGrp codebooks a stage, so a
+// long subvector is walked in 32-input steps on one code.
+// - A thread's eight MMA inputs are the step's inputs 8tig..8tig+7, as
+//   above.  At d % 8 == 0 they lie in one subvector (one code, one 8-byte
+//   load); at d % 8 == 4 (kQuad) on two (two codes, two 4-byte loads).
+// - A shared int8 codebook of at most kStagedMax bytes is staged once a
+//   block; a larger one and per-subvector ones ride the ring as the step's
+//   32-input d-chunk of every codebook row of the group, [g][K][32].
+// - N is a runtime loop over groups of kGrp codebooks (stage t is k-step
+//   t / n_grp, group t % n_grp), stages sized for g = min(N, kGrp); x_i8
+//   of each codebook's copy rides with it.
+// - The split-K cluster reduce is the instances' above (exact int32 sums);
+//   the plan (plan_i8) counts 32-input k-steps.  x_i8 rows are zero past the
+//   real inputs (fold_i8 pads them), and A values past a step's real inputs
+//   come from a real input of the step, so no read leaves the codebook.
+
+constexpr int kAnyBK = 32;             // inputs a stage: one k32 step
+constexpr int kGrp = 4;                // codebooks a stage
+constexpr int kSubRows = 9;            // subvectors 32 inputs can touch at d % 4 == 0
+constexpr int kStagedMax = 64 * 1024;  // a shared codebook up to this is staged once
+constexpr int kMaxSmem = 232448;       // a block's shared memory on the H100
+
+template <int kWarps_, int kNT_, bool kStaged_, bool kQuad_>
+struct AnyTile {
+  static constexpr int kWarps = kWarps_, kNT = kNT_;
+  static constexpr bool kStaged = kStaged_, kQuad = kQuad_;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBN = kWarps * kWarpCols;
+  static constexpr int kBM = kNT * 8;
+  static constexpr int kStages = kStaged ? 4 : 3;
+  static constexpr int kCLd = kBN + 32;
+  static constexpr int kPartBytes = kBM * kBN * 4;
+  // a stage holds g = min(N, kGrp) codebooks' code rows, x_i8 copies and slab
+  __host__ __device__ static int code_bytes(int g) { return g * kSubRows * kCLd; }
+  __host__ __device__ static int x_bytes(int g) { return g * kBM * kAnyBK; }
+  static int slab_bytes(int g, int K) { return kStaged ? 0 : g * K * kAnyBK; }
+};
+
+// x: (R, N, Mp, D) int8 as fold_i8 writes it; q: staged (1, N, K, D),
+// streamed (1 or M, N, K, D) int8.  Block z of the cluster walks inputs
+// [z * k_split, (z + 1) * k_split), k_split % 32 == 0.
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, 1)
+dequant_mm_i8_any(const int8_t* __restrict__ x, const float* __restrict__ xs,
+                  const uint8_t* __restrict__ codes, const int8_t* __restrict__ q,
+                  int q_shared, const float* __restrict__ scales, float* __restrict__ out,
+                  int R, int M, int Mp, int N, int K, int D, int d_out, int d_out_pad,
+                  int k_split, int cb_bytes, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* cbs = reinterpret_cast<int8_t*>(smem);
+  unsigned char* ring = smem + cb_bytes;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * T::kBN, row0 = blockIdx.y * T::kBM;
+  const int d_in = M * D;
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(d_in, k_begin + k_split);
+  const int n_grp = (N + kGrp - 1) / kGrp;
+  const int n_steps = (k_end - k_begin + kAnyBK - 1) / kAnyBK * n_grp;
+  const int code_bytes = T::code_bytes(min(N, kGrp)), x_bytes = T::x_bytes(min(N, kGrp));
+
+  auto load_stage = [&](int slot, int t) {
+    unsigned char* st = ring + slot * stage_bytes;
+    const int kstep = t / n_grp, g = t - kstep * n_grp;
+    const int k0 = k_begin + kstep * kAnyBK, kl = min(k_end, k0 + kAnyBK);
+    const int n0 = g * kGrp, ng = min(kGrp, N - n0);
+    const int m_lo = k0 / D, nsub = (kl - 1) / D + 1 - m_lo;
+    constexpr int kCChunks = T::kBN / 16;
+    for (int i = tid; i < ng * nsub * kCChunks; i += T::kThreads) {
+      const int row = i / kCChunks, c = i - row * kCChunks;
+      const int nl = row / nsub, j = row - nl * nsub;
+      const int col = col0 + c * 16;
+      const bool ok = col < d_out_pad;
+      cp_async16(st + (nl * kSubRows + j) * T::kCLd + c * 16,
+                 ok ? codes + static_cast<size_t>((n0 + nl) * M + m_lo + j) * d_out_pad + col
+                    : codes,
+                 ok);
+    }
+    // x_i8 rows are padded to whole 128-input steps: a step never reads past one
+    unsigned char* xt = st + code_bytes;
+    for (int i = tid; i < ng * T::kBM * 2; i += T::kThreads) {
+      const int row = i >> 1, c = i & 1;
+      const int nl = row / T::kBM, r = row - nl * T::kBM;
+      const bool ok = row0 + r < R;
+      cp_async16(xt + row * kAnyBK + c * 16,
+                 ok ? x + (static_cast<size_t>(row0 + r) * N + n0 + nl) * Mp * D + k0 + c * 16
+                    : x,
+                 ok);
+    }
+    if constexpr (!T::kStaged) {
+      unsigned char* slab = xt + x_bytes;  // [g][K][32]
+      auto at = [&](int e, int n, int k) {
+        const int m = e / D;
+        return (static_cast<size_t>((q_shared ? 0 : m) * N + n) * K + k) * D + (e - m * D);
+      };
+      if (D % 16 == 0) {  // two 16-byte runs of 16 inputs a codebook row
+        for (int i = tid; i < ng * K * 2; i += T::kThreads) {
+          const int h = i & 1, row = i >> 1, nl = row / K;
+          const int e = k0 + 16 * h;
+          const bool ok = e < kl;
+          cp_async16(slab + row * kAnyBK + 16 * h, ok ? q + at(e, n0 + nl, row - nl * K) : q,
+                     ok);
+        }
+      } else {  // eight 4-byte runs of 4 inputs
+        for (int i = tid; i < ng * K * 8; i += T::kThreads) {
+          const int p = i & 7, row = i >> 3, nl = row / K;
+          const int e = k0 + 4 * p;
+          const bool ok = e < kl;
+          cp_async4(slab + row * kAnyBK + 4 * p, ok ? q + at(e, n0 + nl, row - nl * K) : q, ok);
+        }
+      }
+    }
+  };
+
+  if constexpr (T::kStaged) {
+    for (int i = tid; i < N * K * D / 4; i += T::kThreads)
+      reinterpret_cast<uint32_t*>(cbs)[i] = reinterpret_cast<const uint32_t*>(q)[i];
+  }
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  int acc[2][T::kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait<T::kStages - 2>();
+    __syncthreads();
+    const int tn = t + T::kStages - 1;
+    if (tn < n_steps) load_stage(tn % T::kStages, tn);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (t % T::kStages) * stage_bytes;
+    const int8_t* xt = reinterpret_cast<const int8_t*>(st + code_bytes);
+    const int8_t* slab = xt + x_bytes;
+    const int kstep = t / n_grp, g = t - kstep * n_grp;
+    const int k0 = k_begin + kstep * kAnyBK, kl = min(k_end, k0 + kAnyBK);
+    const int n0 = g * kGrp, ng = min(kGrp, N - n0);
+    const int m_lo = k0 / D;
+    const unsigned char* crow = st + warp * kWarpCols + 4 * gid;
+    for (int nl = 0; nl < ng; ++nl) {
+      uint32_t b[T::kNT][2];
+#pragma unroll
+      for (int nt = 0; nt < T::kNT; ++nt) {
+        const uint2 v = lds64(xt + (nl * T::kBM + nt * 8 + gid) * kAnyBK + 8 * tig);
+        b[nt][0] = v.x;
+        b[nt][1] = v.y;
+      }
+      const int8_t* cbn = T::kStaged ? cbs + static_cast<size_t>(n0 + nl) * K * D
+                                     : slab + nl * K * kAnyBK;
+      const int stride = T::kStaged ? D : kAnyBK;
+      if constexpr (!T::kQuad) {
+        const int i = min(k0 + 8 * tig, kl - 8);  // a real input of the step
+        const int m = i / D;
+        const uint32_t cw =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m - m_lo) * T::kCLd);
+        const int8_t* base = cbn + (T::kStaged ? i - m * D : i - k0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t lo = (cw >> (16 * mt)) & 0xffu, hi = (cw >> (16 * mt + 8)) & 0xffu;
+          const uint2 wl = lds64(base + lo * stride);
+          const uint2 wh = lds64(base + hi * stride);
+          const uint32_t a[4] = {wl.x, wh.x, wl.y, wh.y};
+#pragma unroll
+          for (int nt = 0; nt < T::kNT; ++nt) mma_s8(acc[mt][nt], a, b[nt]);
+        }
+      } else {
+        const int i0 = min(k0 + 8 * tig, kl - 4), i1 = min(k0 + 8 * tig + 4, kl - 4);
+        const int m0 = i0 / D, m1 = i1 / D;
+        const uint32_t cw0 =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m0 - m_lo) * T::kCLd);
+        const uint32_t cw1 =
+            *reinterpret_cast<const uint32_t*>(crow + (nl * kSubRows + m1 - m_lo) * T::kCLd);
+        const int8_t* b0 = cbn + (T::kStaged ? i0 - m0 * D : i0 - k0);
+        const int8_t* b1 = cbn + (T::kStaged ? i1 - m1 * D : i1 - k0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t lo0 = (cw0 >> (16 * mt)) & 0xffu, hi0 = (cw0 >> (16 * mt + 8)) & 0xffu;
+          const uint32_t lo1 = (cw1 >> (16 * mt)) & 0xffu, hi1 = (cw1 >> (16 * mt + 8)) & 0xffu;
+          const uint32_t a[4] = {lds32(b0 + lo0 * stride), lds32(b0 + hi0 * stride),
+                                 lds32(b1 + lo1 * stride), lds32(b1 + hi1 * stride)};
+#pragma unroll
+          for (int nt = 0; nt < T::kNT; ++nt) mma_s8(acc[mt][nt], a, b[nt]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int lc = warp * kWarpCols + 4 * gid;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_splits = static_cast<int>(cluster.num_blocks());
+  if (n_splits == 1) {
+#pragma unroll
+    for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {
+        const int r = row0 + nt * 8 + 2 * tig + odd;
+        if (r >= R || col0 + lc >= d_out) continue;
+        const int v[4] = {acc[0][nt][odd], acc[0][nt][2 + odd], acc[1][nt][odd],
+                          acc[1][nt][2 + odd]};
+        store_out(out, v, xs, scales, r, col0 + lc, d_out, d_out_pad);
+      }
+    return;
+  }
+  __syncthreads();  // the ring is free
+  int* part = reinterpret_cast<int*>(smem);  // [kBM][kBN]
+#pragma unroll
+  for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd)
+      *reinterpret_cast<int4*>(part + (nt * 8 + 2 * tig + odd) * T::kBN + lc) =
+          make_int4(acc[0][nt][odd], acc[0][nt][2 + odd], acc[1][nt][odd],
+                    acc[1][nt][2 + odd]);
+  cluster.sync();
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int kQuads = T::kBM * T::kBN / 4;
+  for (int e = rank * T::kThreads + tid; e < kQuads; e += n_splits * T::kThreads) {
+    const int r = e / (T::kBN / 4), c = (e % (T::kBN / 4)) * 4;
+    int v[4] = {0, 0, 0, 0};
+    for (int s = 0; s < n_splits; ++s) {
+      const int4 p = *reinterpret_cast<const int4*>(cluster.map_shared_rank(part, s) + 4 * e);
+      v[0] += p.x;
+      v[1] += p.y;
+      v[2] += p.z;
+      v[3] += p.w;
+    }
+    if (row0 + r < R && col0 + c < d_out)
+      store_out(out, v, xs, scales, row0 + r, col0 + c, d_out, d_out_pad);
+  }
+  cluster.sync();  // no block leaves while its sums are read
+}
+
+template <class T>
+int launch_any(const void* x, const void* xs, const void* codes, const void* q, int q_shared,
+               const void* scales, void* out, int R, int M, int Mp, int N, int K, int D,
+               int d_out, int d_out_pad, int k_split, int n_splits, cudaStream_t stream) {
+  if (k_split % kAnyBK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cb_bytes = T::kStaged ? (N * K * D + 15) / 16 * 16 : 0;
+  const int g = N < kGrp ? N : kGrp;
+  const int stage_bytes = T::code_bytes(g) + T::x_bytes(g) + T::slab_bytes(g, K);
+  int smem = cb_bytes + T::kStages * stage_bytes;
+  smem = smem > T::kPartBytes ? smem : T::kPartBytes;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dequant_mm_i8_any<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((d_out + T::kBN - 1) / T::kBN, (R + T::kBM - 1) / T::kBM, n_splits);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = n_splits;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, dequant_mm_i8_any<T>, static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(q), q_shared,
+      static_cast<const float*>(scales), static_cast<float*>(out), R, M, Mp, N, K, D, d_out,
+      d_out_pad, k_split, cb_bytes, stage_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStaged, bool kQuad>
+int launch_any_config(int config, const void* x, const void* xs, const void* codes,
+                      const void* q, int q_shared, const void* scales, void* out, int R, int M,
+                      int Mp, int N, int K, int D, int d_out, int d_out_pad, int k_split,
+                      int n_splits, cudaStream_t stream) {
+#define LUTVQ_I8A_ARGS x, xs, codes, q, q_shared, scales, out, R, M, Mp, N, K, D, d_out, \
+                       d_out_pad, k_split, n_splits, stream
+  switch (config) {
+    case 0: return launch_any<AnyTile<4, 1, kStaged, kQuad>>(LUTVQ_I8A_ARGS);
+    case 1: return launch_any<AnyTile<4, 2, kStaged, kQuad>>(LUTVQ_I8A_ARGS);
+    case 2: return launch_any<AnyTile<8, 8, kStaged, kQuad>>(LUTVQ_I8A_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LUTVQ_I8A_ARGS
+}
+
 constexpr int kFoldThreads = 512;
 
 // x: (R, M*D) f32; s: (M_s, N, D) f32, s_m_stride = N*D (per subvector) or
@@ -446,21 +750,38 @@ fold_i8(const float* __restrict__ x, const float* __restrict__ s, int8_t* __rest
 }  // namespace
 
 // config (kernels/dequant_mm.py::plan_i8): 0 = 8 rows a block, 1 = 16, 2 =
-// 64 (8 warps, 256 columns).  n_splits (<= 8) blocks of m_split subvectors
-// each form a cluster along grid z; every split must hold a subvector.
+// 64 (8 warps, 256 columns).  n_splits (<= 8) blocks of k_split inputs each
+// form a cluster along grid z; every split must hold an input.  d_subvec 4,
+// 8 or 16 with N <= 2 runs the instances above (k_split a whole stage of
+// subvectors), every other d_subvec % 4 == 0 and N the general ones
+// (k_split % 32 == 0).
 extern "C" int lutvq_dequant_mm_i8(const void* x, const void* xs, const void* codes,
                                    const void* q, const void* scales, void* out, int R, int M,
                                    int Mp, int N, int K, int D, int q_shared, int config,
-                                   int d_out, int d_out_pad, int m_split, int n_splits,
+                                   int d_out, int d_out_pad, int k_split, int n_splits,
                                    void* stream_ptr) {
-  if ((D != 4 && D != 8 && D != 16) || N < 1 || N > kNMax || K < 1 || K > kKMax ||
-      (Mp * D) % kPadInputs != 0 || Mp < M || d_out_pad % 16 != 0 || d_out > d_out_pad ||
-      m_split < 1 || n_splits < 1 || n_splits > kMaxSplits ||
-      static_cast<long>(m_split) * n_splits < M ||
-      static_cast<long>(m_split) * (n_splits - 1) >= M)
+  const long d_in = static_cast<long>(M) * D;
+  if (D < 4 || D % 4 != 0 || N < 1 || K < 1 || K > kKMax ||
+      (static_cast<long>(Mp) * D) % kPadInputs != 0 || Mp < M || d_out_pad % 16 != 0 ||
+      d_out > d_out_pad || k_split < 1 || n_splits < 1 || n_splits > kMaxSplits ||
+      static_cast<long>(k_split) * n_splits < d_in ||
+      static_cast<long>(k_split) * (n_splits - 1) >= d_in)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0 || d_out == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if ((D != 4 && D != 8 && D != 16) || N > kNMax) {
+    const bool staged = q_shared && N * K * D <= kStagedMax;
+#define LUTVQ_I8A_ARGS config, x, xs, codes, q, q_shared, scales, out, R, M, Mp, N, K, D, d_out, \
+                       d_out_pad, k_split, n_splits, stream
+    if (D % 8 == 0)
+      return staged ? launch_any_config<true, false>(LUTVQ_I8A_ARGS)
+                    : launch_any_config<false, false>(LUTVQ_I8A_ARGS);
+    return staged ? launch_any_config<true, true>(LUTVQ_I8A_ARGS)
+                  : launch_any_config<false, true>(LUTVQ_I8A_ARGS);
+#undef LUTVQ_I8A_ARGS
+  }
+  if (k_split % D != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int m_split = k_split / D;
   const bool shared = q_shared != 0;
   switch (D) {
     case 4: return launch_d<4>(config, shared, x, xs, codes, q, scales, out, R, M, Mp, N, K, d_out, d_out_pad, m_split, n_splits, stream);

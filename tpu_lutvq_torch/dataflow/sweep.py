@@ -184,13 +184,13 @@ def _layer(cfg, d_out: int, device: str):
 
 
 def _call(sname: str, cfg, layer, dense, x):
-    """The whole call of ``sname`` on ``x``, or None where the reference's
-    sweep has no such row (T-MAC layers run the lookup kernels only; the
-    W8A8 tables need ``d_subvec % 4 == 0``, the bf16x2 ones an even one)."""
+    """The whole call of ``sname`` on ``x``, or None where the layer has no
+    such tables (the W8A8 ones need ``d_subvec % 4 == 0``, the bf16x2 ones
+    an even one; a T-MAC layer is packed without nibbles, so the dequant
+    kernels read it as any other)."""
     if sname == "dense_bf16":
         return lambda: dense.apply(cfg, x)
-    if sname.startswith("dequant_mm") and (
-            cfg.vq_type == "tmac" or cfg.d_subvec % (4 if sname == "dequant_mm_i8" else 2)):
+    if sname.startswith("dequant_mm") and cfg.d_subvec % (4 if sname == "dequant_mm_i8" else 2):
         return None
     kw = {"lut_gemv": dict(strategy="lut_gemv"),
           "lut_gemv_i8": dict(strategy="lut_gemv", variant="i8"),

@@ -43,8 +43,9 @@ from tpu_lutvq_torch.dataflow.chips import ChipSpec, default_chip
 from tpu_lutvq_torch.kernels.dequant_mm import (
     _BF16X2_TILES,
     _I8_TILES,
-    _KERNEL_D_SUBVEC,
-    _KERNEL_MAX_CODEBOOKS,
+    STAGED_CODEBOOK_BYTES,
+    bf16x2_general,
+    i8_general,
     plan_bf16x2,
     plan_i8,
 )
@@ -65,26 +66,31 @@ from tpu_lutvq_torch.kernels.lut_gemv import (
 # beyond its roofline terms, s ...
 LAUNCH_S = {
     "pair": 1.675e-05,  # A (one token's lookups, csrc/lut_scan.cu kind 0/1) + build_lut
-    "bpair": 1.85e-05,  # B (2-8 tokens, csrc/lut_bpair.cu) + build_lut
-    "scan_i8": 3.425e-05,  # H (csrc/lut_scan.cu kind 2) + build_lut and the quantizer
-    "scan_i16": 2.825e-05,  # I (kind 3) + build_lut and the quantizer
-    "bf16x2": 3e-06,  # C (csrc/dequant_mm.cu)
-    "w8a8": 6e-06,  # G and its fold (csrc/dequant_mm_i8.cu)
-    "dense": 6e-06,  # cuBLAS bf16 x @ W.T
+    "bpair": 1.875e-05,  # B (2-8 tokens, csrc/lut_bpair.cu) + build_lut
+    "scan_i8": 3.45e-05,  # H (csrc/lut_scan.cu kind 2) + build_lut and the quantizer
+    "scan_i16": 2.85e-05,  # I (kind 3) + build_lut and the quantizer
+    "bf16x2": 3.25e-06,  # C (csrc/dequant_mm.cu), the 2x8 instances
+    "bf16x2_any": 6.75e-06,  # C's general instances (every other even d_subvec and N)
+    "w8a8": 5.5e-06,  # G and its fold (csrc/dequant_mm_i8.cu)
+    "w8a8_any": 9.75e-06,  # G's general instances and the fold
+    "dense": 6.25e-06,  # cuBLAS bf16 x @ W.T
 }
 # ... the cost of the busiest SM's gathered and staged words over one SM's
 # shared-memory rate, and of all the call's words over the card's ...
-LOOKUP_COST = {"pair": 6.30957, "bpair": 5.01187, "scan_i8": 6.30957, "scan_i16": 0.72444,
-               "bf16x2": 14.4544, "w8a8": 13.80384}
-STAGE_COST = {"pair": 18.19701, "bpair": 8.70964, "scan_i8": 11.48154, "scan_i16": 12.02264,
-              "bf16x2": 13.18257, "w8a8": 3.31131}
-CARD_COST = {"pair": 0.0, "bpair": 2.0893, "scan_i8": 1.0, "scan_i16": 2.75423,
-             "bf16x2": 0.45709, "w8a8": 2.75423}
+LOOKUP_COST = {"pair": 6.60693, "bpair": 5.49541, "scan_i8": 6.30957, "scan_i16": 1.14815,
+               "bf16x2": 14.4544, "bf16x2_any": 0.0, "w8a8": 14.4544,
+               "w8a8_any": 25.11886}
+STAGE_COST = {"pair": 17.37801, "bpair": 7.58578, "scan_i8": 10.47129, "scan_i16": 11.48154,
+              "bf16x2": 10.96478, "bf16x2_any": 19.05461, "w8a8": 7.58578,
+              "w8a8_any": 0.72444}
+CARD_COST = {"pair": 0.0, "bpair": 1.90546, "scan_i8": 1.20226, "scan_i16": 2.63027,
+             "bf16x2": 0.45709, "bf16x2_any": 9.12011, "w8a8": 2.63027, "w8a8_any": 8.70964}
 # ... the lookups' tables built before their kernel (build_lut, the
 # quantizer), a cost a byte over the HBM rate ...
-BUILD_COST = {"pair": 0.0, "bpair": 8.70964, "scan_i8": 72.4436, "scan_i16": 38.01894}
+BUILD_COST = {"pair": 0.0, "bpair": 8.70964, "scan_i8": 72.4436, "scan_i16": 36.30781}
 # ... and of one tensor-core operation in units of the peak rate
-TENSOR_COST = {"bf16x2": 18.19701, "w8a8": 15.13561, "dense": 1.0}
+TENSOR_COST = {"bf16x2": 18.19701, "bf16x2_any": 1.0, "w8a8": 13.80384,
+               "w8a8_any": 47.86301, "dense": 1.0}
 
 _SCAN_KIND = {"pair": SCAN_PAIR, "scan_i8": 2, "scan_i16": 3}
 _SCAN_TOKEN_TILES = (1, 2, 4, 8)  # csrc/lut_scan.cu's token slots
@@ -252,34 +258,43 @@ def cost_lut_gemv_i16(cfg: VQConfig, d_out: int, batch: int) -> KernelCost:
     return _lut_cost("lut_gemv_i16", cfg, d_out, batch, lambda b: "scan_i16", 2, 4)
 
 
-def _dequant_words(plan, tiles, cfg: VQConfig, d_out: int, entry_bytes: int) -> tuple:
+def _dequant_words(plan, tiles, cfg: VQConfig, d_out: int, entry_bytes: int,
+                   staged: bool) -> tuple:
     """(gathered, staged, busiest) words of a dequant-matmul: every row tile
     rebuilds each weight of its split from ``d_subvec`` codebook entries a
-    code; a block stages a shared codebook once, per-subvector ones stream
-    through every block; the blocks in waves of as many as the card holds."""
+    code; a block stages a small shared codebook once (``staged``), and
+    otherwise each split's inputs' d-chunks of every codebook row stream
+    through the block (per-subvector codebooks, and a shared one too large
+    to stage); the blocks in waves of as many as the card holds."""
     cols, row_tiles, splits = plan.grid
     row = cfg.d_subvec * entry_bytes / 4  # words of one codebook entry row
     entries = cfg.n_codebook * cfg.n_cluster * row  # one subvector's codebooks
-    split_subvec = min(cfg.n_subvec, plan.split_steps * plan.step)
-    block_cb = entries if cfg.shared_codebook else split_subvec * entries
+    split_subvec = min(cfg.d_in, plan.split_steps * plan.step) / cfg.d_subvec
+    block_cb = entries if staged else split_subvec * entries
     waves = _waves(cols * row_tiles * splits, default_chip().sms * tiles[plan.config][3])
     busiest = (waves * plan.block_cols * split_subvec * cfg.n_codebook * row,
                waves * block_cb)
     return (row_tiles * d_out * cfg.n_groups * row,
-            cols * row_tiles * (splits * entries if cfg.shared_codebook
-                                else cfg.n_subvec * entries), busiest)
+            cols * row_tiles * (splits * entries if staged else cfg.n_subvec * entries),
+            busiest)
 
 
 def cost_dequant_mm(cfg: VQConfig, d_out: int, batch: int) -> KernelCost:
     """C (bf16x2 dequant-matmul), as :func:`plan_bf16x2` tiles it."""
     codes, inp, psum, codebook = _base_traffic(cfg, d_out, batch)
-    plan = plan_bf16x2(batch, cfg.n_subvec, d_out, cfg.shared_codebook, default_chip().sms)
-    gathered, staged, busiest = _dequant_words(plan, _BF16X2_TILES, cfg, d_out, 2)
+    d, n = cfg.d_subvec, cfg.n_codebook
+    plan = plan_bf16x2(batch, cfg.n_subvec, d_out, cfg.shared_codebook, default_chip().sms,
+                       d, n)
+    general = bf16x2_general(d, n)
+    staged = cfg.shared_codebook and (
+        not general or n * cfg.n_cluster * d * 2 <= STAGED_CODEBOOK_BYTES)
+    gathered, staged, busiest = _dequant_words(plan, _BF16X2_TILES, cfg, d_out, 2, staged)
+    k = "bf16x2_any" if general else "bf16x2"
     return KernelCost(
         "dequant_mm",
         {"codeword": codes, "codebook": codebook, "lut": 0.0, "inp": inp, "psum": psum},
-        {"bf16x2": gathered}, {"bf16x2": staged}, {"bf16x2": busiest}, {},
-        2 * batch * cfg.d_in * d_out, "bf16", {"bf16x2": 1},
+        {k: gathered}, {k: staged}, {k: busiest}, {},
+        2 * batch * cfg.d_in * d_out, "bf16", {k: 1},
     )
 
 
@@ -288,14 +303,18 @@ def cost_dequant_i8(cfg: VQConfig, d_out: int, batch: int) -> KernelCost:
     the contraction duplicated over the codebooks as the reference counts
     it.  Sweep row only (a precision decision, as ``lut_gemv_i8``)."""
     codes, inp, psum, codebook = _base_traffic(cfg, d_out, batch)
-    plan = plan_i8(batch, cfg.n_subvec, d_out, cfg.shared_codebook, default_chip().sms,
-                   cfg.d_subvec)
-    gathered, staged, busiest = _dequant_words(plan, _I8_TILES, cfg, d_out, 1)
+    d, n = cfg.d_subvec, cfg.n_codebook
+    plan = plan_i8(batch, cfg.n_subvec, d_out, cfg.shared_codebook, default_chip().sms, d, n)
+    general = i8_general(d, n)
+    staged = cfg.shared_codebook and (
+        not general or n * cfg.n_cluster * d <= STAGED_CODEBOOK_BYTES)
+    gathered, staged, busiest = _dequant_words(plan, _I8_TILES, cfg, d_out, 1, staged)
+    k = "w8a8_any" if general else "w8a8"
     return KernelCost(
         "dequant_mm_i8",
         {"codeword": codes, "codebook": codebook, "lut": 0.0, "inp": inp, "psum": psum},
-        {"w8a8": gathered}, {"w8a8": staged}, {"w8a8": busiest}, {},
-        2 * batch * cfg.d_in * d_out * cfg.n_codebook, "int8", {"w8a8": 1},
+        {k: gathered}, {k: staged}, {k: busiest}, {},
+        2 * batch * cfg.d_in * d_out * cfg.n_codebook, "int8", {k: 1},
     )
 
 
@@ -333,16 +352,6 @@ def estimate(
     return STRATEGIES[strategy](cfg, d_out, batch)
 
 
-def serves(strategy: str, cfg: VQConfig) -> bool:
-    """Whether the port's kernels take a ``cfg`` layer under ``strategy``:
-    the exact tier's dequant-matmul (C) takes ``d_subvec`` 8 and at most two
-    codebooks, and an odd ``d_subvec`` goes to the f32 tables (L), which
-    take any; the lookups and the dense matmul take every layer here."""
-    if strategy != "dequant_mm" or cfg.d_subvec % 2:
-        return True
-    return cfg.d_subvec == _KERNEL_D_SUBVEC and cfg.n_codebook <= _KERNEL_MAX_CODEBOOKS
-
-
 @functools.lru_cache(maxsize=4096)
 def pick_strategy(
     cfg: VQConfig,
@@ -354,15 +363,14 @@ def pick_strategy(
     """The strategy of least predicted time for ``batch`` rows of a ``cfg``
     layer with ``d_out`` outputs (the reference's rule, ``traffic.py:388``):
     the argmin of :meth:`KernelCost.time_s` over ``STRATEGIES`` (without
-    ``dense_bf16`` when ``quantized_only``, and without a strategy whose
-    kernels do not take ``cfg``, :func:`serves`), and ``dense_bf16`` for
+    ``dense_bf16`` when ``quantized_only``: the port's kernels take every
+    layer the reference's do), and ``dense_bf16`` for
     codebooks of more than 256 entries (the 1x16 load-time dequant).
     Cached: every ``QuantizedLinear.apply(strategy="auto")`` asks, and the
     model costs tens of microseconds of host time (the reference decides
     once, while tracing)."""
     chip = chip or default_chip()
-    names = [s for s in STRATEGIES
-             if (not quantized_only or s != "dense_bf16") and serves(s, cfg)]
+    names = [s for s in STRATEGIES if not quantized_only or s != "dense_bf16"]
     if cfg.n_cluster > 256:
         return "dense_bf16"
     return min(names, key=lambda s: STRATEGIES[s](cfg, d_out, batch).time_s(chip))

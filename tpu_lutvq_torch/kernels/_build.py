@@ -68,7 +68,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lutvq_lut_nibbles_f32.restype = i32
     lib.lutvq_lut_nibbles_f32_clusters.argtypes = [i32] * 3
     lib.lutvq_lut_nibbles_f32_clusters.restype = i32
-    lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 11 + [vp]
+    lib.lutvq_dequant_mm.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm.restype = i32
     lib.lutvq_dequant_mm_i8.argtypes = [vp] * 6 + [i32] * 12 + [vp]
     lib.lutvq_dequant_mm_i8.restype = i32

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import weakref
 
 import torch
@@ -58,29 +59,35 @@ DEQUANT_MM_F32_LAUNCHES = 0
 FOLD_I8_LAUNCHES = 0  # the W8A8 activation fold (XLA in the JAX package)
 
 TABLES = ("bf16x2", "i8", "f32")
-_KERNEL_D_SUBVEC = 8  # csrc/dequant_mm.cu rebuilds 16-byte (8 × bf16) rows
-_I8_KERNEL_D_SUBVEC = (4, 8, 16)  # csrc/dequant_mm_i8.cu reads 4-, 8- or 16-byte rows
 # csrc/dequant_mm_i8.cu's tiles, chosen by rows, as the bf16x2 ones: (most
 # rows, output columns a block, rows a block, blocks an SM holds)
 _I8_TILES = ((8, 128, 8, 4), (16, 128, 16, 4), (None, 256, 64, 2))
-# inputs a k-step: a shared codebook is staged once, per-subvector ones ride
-# the ring 32 inputs a stage; x_i8 rows are padded to whole 128-input steps
-_I8_STEP_INPUTS = {True: 128, False: 32}
+# x_i8 rows are padded to whole 128-input steps
 I8_PAD_INPUTS = 128
 # the splits of an output tile form one thread-block cluster (portable size)
 _I8_MAX_SPLITS = 8
-_KERNEL_MAX_CODEBOOKS = 2
 # csrc/dequant_mm.cu's tiles, chosen by rows: (most rows, output columns a
 # block, rows a block, blocks an SM holds); above 16 rows x goes in as bf16
 _BF16X2_TILES = ((8, 128, 8, 4), (16, 128, 16, 4), (None, 256, 64, 2))
-# subvectors a k-step: a shared codebook is staged once, per-subvector ones
-# ride the ring two subvectors a stage
-_BF16X2_STEP = {True: 8, False: 2}
+# Inputs a k-step.  The 2x8 instances of C (d_subvec 8, ≤ 2 codebooks)
+# stage a shared codebook once and take 8 subvectors a step, per-subvector
+# ones ride the ring 2 subvectors a step; every other even d_subvec and
+# codebook count takes one k16 step (the general instances).  G's instances
+# for d_subvec 4, 8, 16 with ≤ 2 codebooks take 128 inputs a step (shared)
+# or 32 (per subvector); the general ones one k32 step.
+_BF16X2_STEP = {True: 64, False: 16}
+_BF16X2_ANY_STEP = 16
+_I8_STEP_INPUTS = {True: 128, False: 32}
+_I8_ANY_STEP = 32
+# a shared codebook up to this many bytes (bf16 for C, int8 for G) is staged
+# once a block by the general instances; a larger one streams with the codes
+STAGED_CODEBOOK_BYTES = 64 * 1024
 # csrc/dequant_mm_f32.cu's tiles: 32 or 128 rows by 128 columns, 16 inputs a
 # step; its fast path takes d_subvec 4, 8, 16 with ≤ 2 codebooks
 _F32_TILES = ((32, 128, 32, 2), (None, 128, 128, 2))
 _F32_STEP = 16
 _F32_FAST_D_SUBVEC = (4, 8, 16)
+_F32_FAST_MAX_CODEBOOKS = 2
 # d_in is split across blocks when the output tiles leave SM slots empty,
 # each split at least this many k-steps long
 _MIN_SPLIT_STEPS = 4
@@ -161,12 +168,26 @@ def _plan(tiles, rows, d_out, step, steps, sms, max_splits=None) -> SplitPlan:
                      rows, d_out)
 
 
+def bf16x2_general(d_subvec: int, n_codebook: int) -> bool:
+    """Whether C runs its general instances (every layer but 2x8's d_subvec
+    8 with ≤ 2 codebooks)."""
+    return d_subvec != 8 or n_codebook > 2
+
+
+def i8_general(d_subvec: int, n_codebook: int) -> bool:
+    """Whether G runs its general instances (every layer but d_subvec 4, 8
+    or 16 with ≤ 2 codebooks)."""
+    return d_subvec not in (4, 8, 16) or n_codebook > 2
+
+
 @functools.lru_cache(maxsize=None)
-def plan_bf16x2(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int) -> SplitPlan:
-    """``csrc/dequant_mm.cu``'s plan for ``rows`` × ``n_subvec`` subvectors →
-    ``d_out`` on ``sms`` SMs; its k-steps count subvectors."""
-    step = _BF16X2_STEP[shared]
-    return _plan(_BF16X2_TILES, rows, d_out, step, -(-n_subvec // step), sms)
+def plan_bf16x2(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int,
+                d_subvec: int = 8, n_codebook: int = 2) -> SplitPlan:
+    """``csrc/dequant_mm.cu``'s plan for ``rows`` × ``n_subvec`` subvectors of
+    ``d_subvec`` inputs → ``d_out`` on ``sms`` SMs; its k-steps count inputs
+    (64 or 16 for the 2x8 instances, 16 for the general ones)."""
+    step = _BF16X2_ANY_STEP if bf16x2_general(d_subvec, n_codebook) else _BF16X2_STEP[shared]
+    return _plan(_BF16X2_TILES, rows, d_out, step, -(-n_subvec * d_subvec // step), sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,18 +198,20 @@ def plan_f32(rows: int, d_in: int, d_out: int, sms: int) -> SplitPlan:
 
 @functools.lru_cache(maxsize=None)
 def plan_i8(rows: int, n_subvec: int, d_out: int, shared: bool, sms: int,
-            d_subvec: int) -> SplitPlan:
-    """``csrc/dequant_mm_i8.cu``'s plan; its k-steps count subvectors (128
-    inputs a step with a shared codebook, 32 with per-subvector ones), and
-    at most ``_I8_MAX_SPLITS`` splits, one thread-block cluster a tile."""
-    step = max(1, _I8_STEP_INPUTS[shared] // d_subvec)
-    return _plan(_I8_TILES, rows, d_out, step, -(-n_subvec // step), sms, _I8_MAX_SPLITS)
+            d_subvec: int, n_codebook: int = 2) -> SplitPlan:
+    """``csrc/dequant_mm_i8.cu``'s plan; its k-steps count inputs (128 with
+    a shared codebook, 32 with per-subvector ones; 32 for the general
+    instances), and at most ``_I8_MAX_SPLITS`` splits, one thread-block
+    cluster a tile."""
+    step = _I8_ANY_STEP if i8_general(d_subvec, n_codebook) else _I8_STEP_INPUTS[shared]
+    return _plan(_I8_TILES, rows, d_out, step, -(-n_subvec * d_subvec // step), sms,
+                 _I8_MAX_SPLITS)
 
 
 def i8_padded_subvec(cfg: VQConfig) -> int:
-    """Subvectors a W8A8 kernel's x_i8 row holds: ``n_subvec`` rounded up to
-    whole ``I8_PAD_INPUTS``-input steps, the rest zeros."""
-    return _round_up(cfg.n_subvec, I8_PAD_INPUTS // cfg.d_subvec)
+    """Subvectors a W8A8 kernel's x_i8 row holds: ``n_subvec`` rounded up so
+    that the row is whole ``I8_PAD_INPUTS``-input steps, the rest zeros."""
+    return _round_up(cfg.n_subvec, I8_PAD_INPUTS // math.gcd(I8_PAD_INPUTS, cfg.d_subvec))
 
 
 @functools.lru_cache(maxsize=None)
@@ -215,11 +238,9 @@ def dequant_mm_bf16x2(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch
 
 def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
     global DEQUANT_MM_LAUNCHES
-    if cfg.d_subvec != _KERNEL_D_SUBVEC or cfg.n_codebook > _KERNEL_MAX_CODEBOOKS:
-        raise ValueError(
-            f"dequant_mm kernel takes d_subvec={_KERNEL_D_SUBVEC} and ≤ "
-            f"{_KERNEL_MAX_CODEBOOKS} codebooks; got {cfg}"
-        )
+    d, n = cfg.d_subvec, cfg.n_codebook
+    if d % 2:
+        raise ValueError(f"dequant_mm kernel takes an even d_subvec; got {cfg}")
     _, d_out_pad = _check_codes(cfg, packed)
     r = x.shape[0]
     out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x.device)
@@ -230,16 +251,18 @@ def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
     _build.require_cuda_tensor(xk, "x", xk.dtype)
     shared = packed.codebook.shape[0] == 1
     cb = packed.codebook
-    if not shared:
-        cb = cb.to(torch.bfloat16)  # streamed through the kernel's ring as bf16
+    general = bf16x2_general(d, n)
+    staged = shared and (not general or n * cfg.n_cluster * d * 2 <= STAGED_CODEBOOK_BYTES)
+    if not staged:
+        cb = codebook_bf16(cb)  # streamed through the kernel's ring as bf16
     elif cb.dtype not in _CB_DTYPES:
-        cb = cb.float()  # the kernel rounds a shared one to bf16 as it stages it
+        cb = cb.float()  # the kernel rounds a staged one to bf16 as it stages it
     cb = cb.contiguous()  # (M_cb, N, K, d)
     _build.require_cuda_tensor(cb, "codebook", cb.dtype)
     _build.require_cuda_tensor(packed.codes_t, "codes_t", torch.uint8)
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
-    plan = plan_bf16x2(r, cfg.n_subvec, packed.d_out, shared, _sms(x.device))
+    plan = plan_bf16x2(r, cfg.n_subvec, packed.d_out, shared, _sms(x.device), d, n)
     part = None
     if plan.n_splits > 1:
         part = torch.empty((plan.n_splits, r, d_out_pad), dtype=torch.float32, device=x.device)
@@ -248,7 +271,7 @@ def _launch(cfg: VQConfig, packed: PackedVQ, x: torch.Tensor) -> torch.Tensor:
         xk.data_ptr(), packed.codes_t.data_ptr(), cb.data_ptr(),
         None if packed.scales is None else packed.scales.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        r, cfg.n_subvec, cfg.n_codebook, cfg.n_cluster, int(shared), _CB_DTYPES[cb.dtype],
+        r, cfg.n_subvec, n, cfg.n_cluster, d, int(shared), _CB_DTYPES[cb.dtype],
         plan.config, packed.d_out, d_out_pad, plan.split_steps * plan.step, plan.n_splits,
         _build.stream_ptr(x),
     )
@@ -273,7 +296,7 @@ def quantize_tables_i8(cfg: VQConfig, codebook: torch.Tensor) -> tuple[torch.Ten
     t = codebook.float()
     s = torch.clamp_min(div_scalar(t.abs().amax(dim=2), 127.0), 1e-12)
     q = torch.clamp(torch.round(t / s[:, :, None, :]), -127, 127).to(torch.int8)
-    return q, s
+    return q.contiguous(), s.contiguous()
 
 
 def fold_activations_i8(
@@ -333,11 +356,8 @@ def dequant_mm_i8(
 def _launch_i8(cfg, packed, x_i8, xs, q):
     global DEQUANT_MM_I8_LAUNCHES
     d, m = cfg.d_subvec, cfg.n_subvec
-    if d not in _I8_KERNEL_D_SUBVEC or cfg.n_codebook > _KERNEL_MAX_CODEBOOKS:
-        raise ValueError(
-            f"dequant_mm_i8 kernel takes d_subvec in {_I8_KERNEL_D_SUBVEC} and ≤ "
-            f"{_KERNEL_MAX_CODEBOOKS} codebooks; got {cfg}"
-        )
+    if d % 4:
+        raise ValueError(f"dequant_mm_i8 kernel takes d_subvec % 4 == 0; got {cfg}")
     _, d_out_pad = _check_codes(cfg, packed)
     r = x_i8.shape[0]
     out = torch.empty((r, packed.d_out), dtype=torch.float32, device=x_i8.device)
@@ -354,7 +374,7 @@ def _launch_i8(cfg, packed, x_i8, xs, q):
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
     shared = q.shape[0] == 1
-    plan = plan_i8(r, m, packed.d_out, shared, _sms(x_i8.device), d)
+    plan = plan_i8(r, m, packed.d_out, shared, _sms(x_i8.device), d, cfg.n_codebook)
     lib = _build.library()
     err = lib.lutvq_dequant_mm_i8(
         x_i8.data_ptr(), xs.data_ptr(), packed.codes_t.data_ptr(), q.data_ptr(),
@@ -402,27 +422,43 @@ def _launch_fold_i8(cfg, x, s):
     return x_i8, xs
 
 
-# (id of a codebook tensor) → (weak reference, its _version, q, s)
+# (id of a codebook tensor) → (weak reference, its _version, value): the
+# W8A8 tables (q, s) and the bf16 codebooks C streams
 _TABLES_I8: dict = {}
+_CODEBOOKS_BF16: dict = {}
+
+
+def _per_codebook(cache: dict, codebook: torch.Tensor, make):
+    """``make()`` once per codebook tensor: kept, weakly keyed on the tensor,
+    until the tensor is edited in place (its ``_version`` moves) or freed."""
+    key = id(codebook)
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is codebook and hit[1] == codebook._version:
+        return hit[2]
+    value = make()
+    ref = weakref.ref(codebook, lambda _, key=key: cache.pop(key, None))
+    cache[key] = (ref, codebook._version, value)
+    return value
 
 
 def tables_i8(cfg: VQConfig, codebook: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`quantize_tables_i8` once per codebook tensor: the result is
-    kept, weakly keyed on the tensor, until the tensor is edited in place
-    (its ``_version`` moves) or freed.  ``local_view`` keeps the pack's
+    """:func:`quantize_tables_i8` once per codebook tensor (kept until the
+    tensor is edited in place or freed).  ``local_view`` keeps the pack's
     codebook object, so every shard view of a layer shares one entry.  The
     cache holds ``q`` and ``s``: N·K·d bytes (4 KiB at 2x8) a projection
     with a shared codebook, M·N·K·d (2 MiB at 7B width) with per-subvector
     ones.  The values are those of a fresh call (the JAX package quantizes
     per call)."""
-    key = id(codebook)
-    hit = _TABLES_I8.get(key)
-    if hit is not None and hit[0]() is codebook and hit[1] == codebook._version:
-        return hit[2], hit[3]
-    q, s = quantize_tables_i8(cfg, codebook)
-    ref = weakref.ref(codebook, lambda _, key=key: _TABLES_I8.pop(key, None))
-    _TABLES_I8[key] = (ref, codebook._version, q, s)
-    return q, s
+    return _per_codebook(_TABLES_I8, codebook, lambda: quantize_tables_i8(cfg, codebook))
+
+
+def codebook_bf16(codebook: torch.Tensor) -> torch.Tensor:
+    """The codebook as C streams it through its ring, rounded to bf16
+    (torch's cast, as the kernel rounds a staged one): made once per
+    codebook tensor, as :func:`tables_i8`, so a call launches C alone."""
+    if codebook.dtype == torch.bfloat16:
+        return codebook.contiguous()
+    return _per_codebook(_CODEBOOKS_BF16, codebook, lambda: codebook.to(torch.bfloat16).contiguous())
 
 
 # ---- f32 tables (the oracle) ---------------------------------------------------
@@ -458,7 +494,7 @@ def _launch_f32(cfg, packed, x):
     if packed.scales is not None:
         _build.require_cuda_tensor(packed.scales, "scales", torch.float32)
     plan = plan_f32(r, cfg.d_in, packed.d_out, _sms(x.device))
-    fast = cfg.d_subvec in _F32_FAST_D_SUBVEC and cfg.n_codebook <= _KERNEL_MAX_CODEBOOKS
+    fast = cfg.d_subvec in _F32_FAST_D_SUBVEC and cfg.n_codebook <= _F32_FAST_MAX_CODEBOOKS
     part = None
     if plan.n_splits > 1:
         part = torch.empty((plan.n_splits, r, d_out_pad), dtype=torch.float32, device=x.device)

@@ -238,26 +238,32 @@ def _launch(q, k, v, k_scale, v_scale, pos, block_tables, nblk, block_s):
 
 def flash_decode_attention(
     q: torch.Tensor,  # (B, H, Dh) single-token queries, post-RoPE
-    k_q: torch.Tensor,  # (B, H_kv, S, Dh) int8 or bf16
+    k_q: torch.Tensor,  # (B, H_kv, S, Dh) int8 or bf16, or (L, B, H_kv, S, Dh) with layer
     v_q: torch.Tensor,
-    k_scale: torch.Tensor,  # (B, H_kv, S)
+    k_scale: torch.Tensor,  # (B, H_kv, S), or (L, B, H_kv, S) with layer
     v_scale: torch.Tensor,
     pos: torch.Tensor,  # (B,) int32: attend to rows s <= pos[b]
     *,
     window: int,
     block_s: int = DEFAULT_BLOCK_S,
-    layer=None,
+    layer=None,  # stacked-cache layer index
     plain: bool = False,
 ) -> torch.Tensor:
     """Single-step attention ``(B, H, Dh)`` f32 over the first ``window``
     rows of a slab cache.  ``block_s`` is clamped and ``window`` floored to
     whole blocks as in the reference (``flash_decode.py:217-222``).
-    ``plain=True`` runs the plain version on any device (reference runs)."""
+    ``plain=True`` runs the plain version on any device (reference runs).
+
+    ``layer`` (an int or a 0-d tensor) reads a stacked cache, planes ``(L,
+    B, H_kv, S, Dh)`` and scales ``(L, B, H_kv, S)``: layer ``layer``'s slab
+    of each is a contiguous view, and the same kernel launches on its
+    pointer (the plain version reads the same view), so nothing is copied.
+    The reference restricts this mode to ``head_dim >= 128``, a TPU lane
+    constraint; here it takes the head dims the kernel is built for
+    (``KERNEL_HEAD_DIMS``) and raises as the kernel does for any other."""
     if layer is not None:
-        raise NotImplementedError(
-            "flash_decode_attention(layer=) reads a stacked cache, which is not "
-            "ported (ROADMAP: the stacked and hybrid cache container)"
-        )
+        li = int(layer)
+        k_q, v_q, k_scale, v_scale = (t[li] for t in (k_q, v_q, k_scale, v_scale))
     b, h, dh = q.shape
     hkv, s_max = k_q.shape[1], k_q.shape[2]
     if h % hkv:

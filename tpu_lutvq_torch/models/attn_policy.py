@@ -35,18 +35,24 @@ def resolve_attn(
     *,
     batch: int,
     window: int,
-    heads: int,
     t: int = 1,
     paged: bool = False,
+    heads: int = 0,
+    stacked: bool = False,
 ) -> str:
     """Resolve ``"auto"`` to ``"flash"`` or ``"xla"``; any other value is
-    returned as given.  ``heads`` (query heads) sizes the prefill transient."""
+    returned as given.  ``heads`` (query heads) sizes the prefill transient.
+    ``stacked``: decode reads a stacked container's planes in place (the
+    hybrid and scan modes), where the reference lifts its batch gate
+    (``attn_policy.py:74-109``).  On the H100 ``MIN_BATCH_FOR_FLASH_SLAB``
+    is 1, so the gate lets every batch through either way and ``stacked``
+    changes no route today."""
     if attn != "auto":
         return attn
     if t > 1:
         transient = 2 * 4 * batch * heads * t * window  # score + prob, f32
         return "flash" if transient > XLA_PREFILL_TRANSIENT_BUDGET else "xla"
-    if not paged and batch < MIN_BATCH_FOR_FLASH_SLAB:
+    if not paged and not stacked and batch < MIN_BATCH_FOR_FLASH_SLAB:
         return "xla"
     threshold = FLASH_CROSSOVER_PAGED if paged else FLASH_CROSSOVER_SLAB
     return "flash" if batch * window >= threshold else "xla"

@@ -5,6 +5,14 @@ Layout ``(B, H_kv, S, Dh)``, per (token, head) symmetric int8 quantization
 are immutable, :func:`update_cache` writes the new rows into the cache's
 tensors in place — a functional copy would move the whole cache every step —
 and returns the same cache.
+
+The stacked container (the reference's scan and hybrid modes) is one
+``KVCache`` whose leaves carry a leading layer axis, ``(L, B, H_kv, S[,
+Dh])``.  Layer ``li``'s slab is ``leaf[li]``, a contiguous view
+(:func:`layer_view`), so no function here copies a layer: the JAX package's
+``update_cache_stacked`` scatters into a carried buffer and
+``slice_layer_window`` copies the window out, where the port writes into
+the view and returns a view.
 """
 
 from __future__ import annotations
@@ -66,6 +74,18 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale.float()
 
 
+def _new_rows(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The cache's four planes' new rows, ``(B, T, H, ...)``, in its dtypes."""
+    if cache.k_q.dtype == torch.int8:
+        k_q, k_s = quantize_kv(k)
+        v_q, v_s = quantize_kv(v)
+    else:  # direct storage (bf16 mode): unit scales
+        k_q, v_q = k.to(cache.k_q.dtype), v.to(cache.v_q.dtype)
+        k_s = torch.ones(k.shape[:-1], dtype=torch.float32, device=k.device)
+        v_s = torch.ones(v.shape[:-1], dtype=torch.float32, device=v.device)
+    return k_q, v_q, k_s.to(cache.k_scale.dtype), v_s.to(cache.v_scale.dtype)
+
+
 def update_cache(
     cache: KVCache, k: torch.Tensor, v: torch.Tensor, pos
 ) -> KVCache:
@@ -76,34 +96,70 @@ def update_cache(
     sequence).  Rows must fit: callers guard ``pos + T ≤ max_seq``.
     """
     b, t = k.shape[0], k.shape[1]
-    if cache.k_q.dtype == torch.int8:
-        k_q, k_s = quantize_kv(k)
-        v_q, v_s = quantize_kv(v)
-    else:  # direct storage (bf16 mode): unit scales
-        k_q, v_q = k.to(cache.k_q.dtype), v.to(cache.v_q.dtype)
-        k_s = torch.ones(k.shape[:-1], dtype=torch.float32, device=k.device)
-        v_s = torch.ones(v.shape[:-1], dtype=torch.float32, device=v.device)
-    k_s = k_s.to(cache.k_scale.dtype)
-    v_s = v_s.to(cache.v_scale.dtype)
+    new = _new_rows(cache, k, v)
     pos = torch.as_tensor(pos, device=cache.k_q.device)
     if pos.ndim == 0:
         p = int(pos)
         if p + t > cache.max_seq:
             raise ValueError(f"rows [{p}, {p + t}) exceed max_seq={cache.max_seq}")
-        # (B, T, H, ...) → (B, H, T, ...)
-        cache.k_q[:, :, p : p + t] = k_q.transpose(1, 2)
-        cache.v_q[:, :, p : p + t] = v_q.transpose(1, 2)
-        cache.k_scale[:, :, p : p + t] = k_s.transpose(1, 2)
-        cache.v_scale[:, :, p : p + t] = v_s.transpose(1, 2)
+        for dst, src in zip(cache, new):  # (B, T, H, ...) → (B, H, T, ...)
+            dst[:, :, p : p + t] = src.transpose(1, 2)
         return cache
     bi = torch.arange(b, device=pos.device)[:, None]  # (B, 1)
     si = pos.long()[:, None] + torch.arange(t, device=pos.device)[None, :]  # (B, T)
     # advanced indices around a slice put (B, T) first: values stay (B, T, H, ...)
-    cache.k_q[bi, :, si] = k_q
-    cache.v_q[bi, :, si] = v_q
-    cache.k_scale[bi, :, si] = k_s
-    cache.v_scale[bi, :, si] = v_s
+    for dst, src in zip(cache, new):
+        dst[bi, :, si] = src
     return cache
+
+
+def layer_view(caches_all: KVCache, li) -> KVCache:
+    """Layer ``li`` of a stacked cache: ``leaf[li]`` of each plane, a
+    contiguous ``(B, H_kv, S[, Dh])`` view."""
+    li = int(li)
+    return KVCache(*(leaf[li] for leaf in caches_all))
+
+
+def update_cache_stacked(
+    caches_all: KVCache, li, k: torch.Tensor, v: torch.Tensor, pos
+) -> KVCache:
+    """Write T new tokens into layer ``li`` of a stacked cache, in place
+    (``kv_cache.py:123-162``); returns ``caches_all``.  Rows at or past
+    ``S`` are dropped, as the reference's ``mode="drop"`` scatter drops
+    them, never clamped onto row ``S-1``.
+
+    ``pos`` as :func:`update_cache` takes it.  A per-sequence ``pos`` on the
+    card is never read back: a dropped row is rewritten with its own value
+    at the row ``S`` below it, which no kept row of the same write touches
+    while ``T ≤ S``."""
+    layer = layer_view(caches_all, li)
+    b, t = k.shape[0], k.shape[1]
+    s = layer.max_seq
+    if t > s:
+        raise ValueError(f"{t} new rows exceed max_seq={s}")
+    new = _new_rows(layer, k, v)
+    pos = torch.as_tensor(pos, device=layer.k_q.device)
+    if pos.ndim == 0:
+        p = int(pos)
+        n = max(0, min(t, s - p))
+        for dst, src in zip(layer, new):
+            dst[:, :, p : p + n] = src[:, :n].transpose(1, 2)
+        return caches_all
+    si = pos.long()[:, None] + torch.arange(t, device=pos.device)[None, :]  # (B, T)
+    keep = si < s
+    si = si % s
+    bi = torch.arange(b, device=pos.device)[:, None].expand(b, t)
+    for dst, src in zip(layer, new):
+        old = dst[bi, :, si]  # (B, T, H, ...)
+        dst[bi, :, si] = torch.where(keep.view(b, t, *[1] * (src.ndim - 2)), src, old)
+    return caches_all
+
+
+def slice_layer_window(caches_all: KVCache, li, window: int) -> KVCache:
+    """The ``[0, window)`` prefix of layer ``li``: a view (the reference
+    copies it, ``kv_cache.py:165-179``)."""
+    layer = layer_view(caches_all, li)
+    return layer.slice_prefix(min(window, layer.max_seq))
 
 
 def write_cache_slots(big: KVCache, small: KVCache, slots) -> KVCache:
@@ -125,3 +181,24 @@ def write_cache_slots(big: KVCache, small: KVCache, slots) -> KVCache:
 def write_cache_slot(big: KVCache, small: KVCache, slot: int) -> KVCache:
     """Admission: copy a B=1 cache into slot ``slot`` (``kv_cache.py:257-272``)."""
     return write_cache_slots(big, small, [slot])
+
+
+def write_cache_slots_stacked(big: KVCache, small: KVCache, slots) -> KVCache:
+    """Admission into a stacked container: a stacked ``(L, k, H, S', …)``
+    wave cache into slots ``slots`` of a stacked ``(L, B, H, S, …)`` one,
+    every layer, in place (``kv_cache.py:231-254``).  Each slot is
+    overwritten whole, rows past ``S'`` zeroed, scales included."""
+    slots = torch.as_tensor(slots, device=big.k_q.device).long()
+    t, s = small.k_q.shape[3], big.k_q.shape[3]
+    if t > s:
+        raise ValueError(f"{t} rows do not fit max_seq={s}")
+    for dst, src in zip(big, small):
+        dst[:, slots, :, :t] = src.to(dst.dtype)
+        dst[:, slots, :, t:] = 0
+    return big
+
+
+def write_cache_slot_stacked(big: KVCache, small: KVCache, slot: int) -> KVCache:
+    """Admission of one stacked ``(L, 1, H, S', …)`` cache into slot ``slot``
+    (``kv_cache.py:182-203``)."""
+    return write_cache_slots_stacked(big, small, [slot])

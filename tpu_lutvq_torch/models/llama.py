@@ -1,5 +1,6 @@
 """Llama-2 decoder with AQLM-quantized projections (counterpart of
-``tpu_lutvq.models.llama``, per-layer tuple caches, slab or paged).
+``tpu_lutvq.models.llama``): per-layer tuple caches (slab or paged), and
+the stacked container's hybrid and scan modes.
 
 RMSNorm, RoPE, GQA attention over the INT8 KV cache and a SwiGLU MLP, with
 every projection a ``QuantizedLinear``.  Attention runs the flash kernels
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,7 +23,12 @@ from tpu_lutvq_torch.core.config import VQConfig, aqlm_2x8
 from tpu_lutvq_torch.kernels.flash_decode import flash_decode_attention, flash_decode_paged
 from tpu_lutvq_torch.kernels.flash_prefill import flash_prefill_attention
 from tpu_lutvq_torch.models.attn_policy import resolve_attn
-from tpu_lutvq_torch.models.kv_cache import KVCache, update_cache
+from tpu_lutvq_torch.models.kv_cache import (
+    KVCache,
+    layer_view,
+    update_cache,
+    update_cache_stacked,
+)
 from tpu_lutvq_torch.models.paged_cache import PagedKVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear, make_quantized_linear
 
@@ -264,6 +271,7 @@ def _block(
     window: Optional[int],
     attn: str,
     cache_pos,  # pos as update_cache takes it (int for one shared position)
+    stacked=None,  # (stacked KVCache, layer index): read and write layer li in place
 ) -> tuple[torch.Tensor, object]:
     b, t, _ = x.shape
     vq_h, vq_f = cfg.vq_cfg(cfg.hidden), cfg.vq_cfg(cfg.ffn)
@@ -275,7 +283,23 @@ def _block(
     tpos = pos[:, None] + torch.arange(t, device=x.device)[None, :]  # (B, T)
     q = rope(q, tpos, cfg.rope_theta)
     k = rope(k, tpos, cfg.rope_theta)
-    if isinstance(cache, PagedKVCache):
+    if stacked is not None:
+        caches_all, li = stacked
+        update_cache_stacked(caches_all, li, k, v, cache_pos)
+        s_max = caches_all.k_q.shape[3]
+        w = min(window if window is not None else s_max, s_max)
+        attn_r = resolve_attn(attn, batch=b, window=w, t=t, heads=cfg.n_heads, stacked=True)
+        if t == 1 and attn_r == "flash":
+            # decode reads the stacked planes at layer li in place (D's layer= mode)
+            out = flash_decode_attention(
+                q[:, 0], caches_all.k_q, caches_all.v_q, caches_all.k_scale,
+                caches_all.v_scale, pos, window=w, layer=li, plain=kw["plain"],
+            )
+            attn_out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+        else:  # the layer's view, read as the tuple path reads its cache
+            attn_out = _attention(cfg, q, layer_view(caches_all, li), pos, window, attn_r,
+                                  kw["plain"])
+    elif isinstance(cache, PagedKVCache):
         if t != 1:
             raise ValueError(
                 "paged caches decode one token per step; prefill runs on a slab "
@@ -298,7 +322,7 @@ def llama_forward(
     cfg: LlamaConfig,
     weights: LlamaWeights,
     tokens: torch.Tensor,  # (B, T) integer ids
-    caches: tuple,  # per-layer KVCache (slab) or PagedKVCache (pool)
+    caches,  # per-layer KVCache (slab) or PagedKVCache (pool), or one stacked KVCache
     pos,  # int / 0-d tensor, or (B,) per-sequence positions
     *,
     strategy: str = "auto",
@@ -312,10 +336,24 @@ def llama_forward(
 ) -> tuple[torch.Tensor, tuple]:
     """Forward pass over T new tokens at absolute position(s) ``pos``.
 
-    Per-layer tuple caches (the JAX package's python-loop mode), slab
-    ``KVCache`` or paged ``PagedKVCache`` (decode only, T=1); the caches are
-    updated in place and returned.  ``window`` bounds the cache prefix
-    attention reads; ``attn`` is "xla" (einsum), "flash" (the flash
+    Three modes, told apart by the containers as in the reference
+    (``llama.py:496-538``):
+
+    - per-layer tuple caches, slab ``KVCache`` or paged ``PagedKVCache``
+      (decode only, T=1): the python loop;
+    - one stacked ``KVCache`` (:func:`init_stacked_caches`) with per-layer
+      weights: HYBRID, each layer's rows written into its slab of the
+      stacked planes and decode attention (flash) reading them there,
+      ``flash_decode_attention(layer=)``;
+    - one stacked ``KVCache`` with stacked weights
+      (:func:`stack_llama_weights`): SCAN, the same over per-layer views of
+      the stacked weights, built once per weights and kept
+      (:func:`layer_weights`).
+
+    Stacked weights are told apart by the rank of ``attn_norm`` (``(L,
+    hidden)``), not by ``len(layers)``: a 1-layer model has one entry too.
+    The caches are updated in place and returned.  ``window`` bounds the cache
+    prefix attention reads; ``attn`` is "xla" (einsum), "flash" (the flash
     kernels) or "auto" (``resolve_attn``).  ``variant`` and ``quality``
     ("exact" | "fast", the serving precision budget: "fast" serves the
     ``dequant_mm`` projections with the W8A8 tables) go to every projection
@@ -325,10 +363,16 @@ def llama_forward(
     Returns (logits (B, T', vocab) float32, caches), T' = T for
     ``logits_mode="all"`` and 1 otherwise.
     """
-    if isinstance(caches, (KVCache, PagedKVCache)):
-        raise NotImplementedError(
-            "stacked (scan/hybrid) caches are not ported (ROADMAP: the stacked and "
-            "hybrid cache container)"
+    if isinstance(caches, PagedKVCache):
+        raise ValueError("paged caches are per-layer: pass a tuple of PagedKVCache")
+    layers = weights.layers
+    if weights_stacked(weights):
+        layers = layer_weights(layers[0])
+    stacked = isinstance(caches, KVCache)
+    if stacked and (caches.k_q.ndim != 5 or caches.k_q.shape[0] != len(layers)):
+        raise ValueError(
+            f"a stacked cache has leaves (L={len(layers)}, B, H_kv, S, Dh); got "
+            f"{tuple(caches.k_q.shape)}"
         )
     b = tokens.shape[0]
     device = weights.embed.device
@@ -339,10 +383,17 @@ def llama_forward(
         pos_vec = cache_pos = pos.to(device=device, dtype=torch.int32)
     kw = dict(strategy=strategy, variant=variant, quality=quality, plain=plain)
     x = weights.embed[tokens.to(device).long()].float()
-    new_caches = []
-    for lw, cache in zip(weights.layers, caches):
-        x, cache = _block(cfg, lw, x, cache, pos_vec, kw, window, attn, cache_pos)
-        new_caches.append(cache)
+    if stacked:
+        for li, lw in enumerate(layers):
+            x, _ = _block(cfg, lw, x, None, pos_vec, kw, window, attn, cache_pos,
+                          stacked=(caches, li))
+        new_caches = caches
+    else:
+        new_caches = []
+        for lw, cache in zip(layers, caches):
+            x, cache = _block(cfg, lw, x, cache, pos_vec, kw, window, attn, cache_pos)
+            new_caches.append(cache)
+        new_caches = tuple(new_caches)
     if logits_mode == "last":
         x = x[:, -1:]
     elif logits_mode == "index":
@@ -352,7 +403,7 @@ def llama_forward(
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     x = rms_norm(x, weights.final_norm, cfg.rms_eps)
     logits = weights.lm_head(x).float()
-    return logits, tuple(new_caches)
+    return logits, new_caches
 
 
 def llama_decode_step(
@@ -376,3 +427,98 @@ def init_caches(cfg: LlamaConfig, batch: int, device="cuda") -> tuple[KVCache, .
                      scale_dtype=sdtype, device=device)
         for _ in range(cfg.n_layers)
     )
+
+
+def init_stacked_caches(cfg: LlamaConfig, batch: int, device="cuda") -> KVCache:
+    """One ``KVCache`` with a leading layer axis, ``(L, B, H_kv, S, Dh)``
+    (``llama.py:414-420``): the hybrid and scan modes' container."""
+    dtype = torch.int8 if cfg.kv_dtype == "int8" else torch.bfloat16
+    sdtype = torch.bfloat16 if cfg.kv_scale_dtype == "bf16" else torch.float32
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
+    return KVCache(
+        k_q=torch.zeros(shape, dtype=dtype, device=device),
+        v_q=torch.zeros(shape, dtype=dtype, device=device),
+        k_scale=torch.ones(shape[:4], dtype=sdtype, device=device),
+        v_scale=torch.ones(shape[:4], dtype=sdtype, device=device),
+    )
+
+
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _stack_projection(ps: list):
+    p0 = ps[0]
+    if isinstance(p0, DenseLinear):
+        return DenseLinear(torch.stack([p.w for p in ps]))
+    if not isinstance(p0, QuantizedLinear):
+        raise ValueError(f"{type(p0).__name__} projections do not stack")
+    pk = [p.packed for p in ps]
+    aux = {(k.d_out, k.shards, k.nibbles, k.out_group) for k in pk}
+    if len(aux) != 1:
+        raise ValueError(f"layers' packs differ in (d_out, shards, nibbles, out_group): {aux}")
+
+    def stack(name):
+        leaves = [getattr(k, name) for k in pk]
+        return None if leaves[0] is None else torch.stack(leaves)
+
+    return QuantizedLinear(dataclasses.replace(
+        pk[0], codes_t=stack("codes_t"), codebook=stack("codebook"), scales=stack("scales"),
+        zero_points=stack("zero_points")))
+
+
+def stack_llama_weights(weights: LlamaWeights) -> LlamaWeights:
+    """Per-layer weights stacked on a leading axis (``llama.py:404-412``):
+    ``layers`` becomes a 1-tuple whose leaves are ``(L, ...)``, the scan
+    mode's weights.  The stacked tensors are copies; the per-layer views
+    :func:`llama_forward` runs them through are made once
+    (:func:`layer_weights`)."""
+    ls = weights.layers
+    stacked = LayerWeights(
+        attn_norm=torch.stack([lw.attn_norm for lw in ls]),
+        mlp_norm=torch.stack([lw.mlp_norm for lw in ls]),
+        **{name: _stack_projection([getattr(lw, name) for lw in ls]) for name in _PROJECTIONS},
+    )
+    return weights._replace(layers=(stacked,))
+
+
+def weights_stacked(weights: LlamaWeights) -> bool:
+    """Whether ``weights`` are stacked (scan mode): one layer entry whose
+    ``attn_norm`` is ``(L, hidden)``, as the reference tells them apart."""
+    return len(weights.layers) == 1 and weights.layers[0].attn_norm.ndim == 2
+
+
+# id(stacked attn_norm) → (weak reference to it, the layers' views)
+_LAYER_VIEWS: dict = {}
+
+
+def layer_weights(stacked: LayerWeights) -> tuple[LayerWeights, ...]:
+    """The per-layer views of stacked weights, made once and kept while the
+    stacked ``attn_norm`` lives: every step runs the same view objects, so
+    the caches keyed on a codebook tensor (``kernels.dequant_mm.tables_i8``,
+    ``codebook_bf16``) hit instead of re-quantizing each step.  The views
+    are taken of detached tensors, so they do not keep the stacked weights
+    alive on their own."""
+    key = id(stacked.attn_norm)
+    hit = _LAYER_VIEWS.get(key)
+    if hit is not None and hit[0]() is stacked.attn_norm:
+        return hit[1]
+
+    def view(t, i):
+        return None if t is None else t.detach()[i]
+
+    def proj(p, i):
+        if isinstance(p, DenseLinear):
+            return DenseLinear(view(p.w, i))
+        k = p.packed
+        return QuantizedLinear(dataclasses.replace(
+            k, codes_t=view(k.codes_t, i), codebook=view(k.codebook, i),
+            scales=view(k.scales, i), zero_points=view(k.zero_points, i)))
+
+    views = tuple(
+        LayerWeights(attn_norm=view(stacked.attn_norm, i), mlp_norm=view(stacked.mlp_norm, i),
+                     **{name: proj(getattr(stacked, name), i) for name in _PROJECTIONS})
+        for i in range(stacked.attn_norm.shape[0])
+    )
+    ref = weakref.ref(stacked.attn_norm, lambda _, key=key: _LAYER_VIEWS.pop(key, None))
+    _LAYER_VIEWS[key] = (ref, views)
+    return views

@@ -24,11 +24,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpu_lutvq_torch.models.kv_cache import write_cache_slots
+from tpu_lutvq_torch.models.kv_cache import write_cache_slots, write_cache_slots_stacked
 from tpu_lutvq_torch.models.llama import (
     LlamaConfig,
     LlamaWeights,
     init_caches,
+    init_stacked_caches,
     llama_decode_step,
     llama_forward,
 )
@@ -87,19 +88,31 @@ class ContinuousBatcher:
         to every prefill, wave, chunked admission and decode step: "fast"
         serves the ``dequant_mm`` projections with the W8A8 tables.
 
+        ``stacked_kv``: the slab cache as ONE stacked ``(L, B, H, S, …)``
+        container (``llama_forward``'s hybrid mode, ``batching.py:103-110``):
+        admission prefills into a small stacked cache and copies every layer
+        into the slots at once (``write_cache_slot(s)_stacked``), and decode
+        reads each layer's planes in place.  The slab route only: with a
+        paged pool, or with injected device programs, it raises as the
+        reference does.
+
         ``prefill_fn``/``step_fn``/``cache_factory``/``paged_cache_factory``
-        (tensor-parallel device programs) and ``stacked_kv`` are not ported
-        and raise."""
+        (tensor-parallel device programs) are not ported and raise."""
+        if stacked_kv and paged_blocks is not None:
+            raise ValueError(
+                "stacked_kv applies to the slab cache; the paged pool is already a "
+                "per-layer pool container"
+            )
+        if stacked_kv and any(f is not None for f in (prefill_fn, step_fn, cache_factory)):
+            raise ValueError(
+                "stacked_kv is the default-program slab route; injected (TP) programs "
+                "bring their own caches"
+            )
         if any(f is not None for f in (prefill_fn, step_fn, cache_factory,
                                        paged_cache_factory)):
             raise NotImplementedError(
                 "injected device programs serve tensor-parallel meshes, which need "
                 "`dist/`, not ported yet (ROADMAP: `dist/`)"
-            )
-        if stacked_kv:
-            raise NotImplementedError(
-                "stacked_kv is not ported (ROADMAP: the stacked and hybrid cache "
-                "container)"
             )
         self.cfg = cfg
         self.weights = weights
@@ -112,6 +125,9 @@ class ContinuousBatcher:
         self.active: list[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)  # next write position
         self.paged = paged_blocks is not None
+        self.stacked_kv = stacked_kv
+        # the admission prefills' small caches, and the slab's
+        self._cache_factory = init_stacked_caches if stacked_kv else init_caches
         if self.paged:
             bs = paged_block_size
             self._bs = bs
@@ -130,7 +146,7 @@ class ContinuousBatcher:
             self._slot_blocks: list[Optional[list]] = [None] * n_slots
             self._slot_capacity = np.zeros(n_slots, np.int64)
         else:
-            self.caches = init_caches(cfg, n_slots, device=self.device)
+            self.caches = self._cache_factory(cfg, n_slots, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill_chunk = prefill_chunk
         self._chunked_prefill = None
@@ -216,7 +232,7 @@ class ContinuousBatcher:
     def _admit_prefill(self, prompts: np.ndarray, last_idx=None):
         """Prefill ``prompts`` (k, T) on a fresh k-slot slab cache: the last
         position's logits, or each row's ``last_idx`` position's."""
-        small = init_caches(self.cfg, prompts.shape[0], device=self.device)
+        small = self._cache_factory(self.cfg, prompts.shape[0], device=self.device)
         toks = self._to_device(prompts)
         if last_idx is None:
             logits, small = llama_forward(self.cfg, self.weights, toks, small, 0,
@@ -233,6 +249,9 @@ class ContinuousBatcher:
         slots whole, or through the slots' new table rows into the pool
         (``t0s``: each request's own length; pad rows go to block 0)."""
         slots_dev = self._to_device(np.asarray(slots, np.int64))
+        if self.stacked_kv:
+            write_cache_slots_stacked(self.caches, small, slots_dev)
+            return
         if not self.paged:
             for big, s in zip(self.caches, small):
                 write_cache_slots(big, s, slots_dev)
@@ -302,7 +321,7 @@ class ContinuousBatcher:
                 table_row[0, : len(blocks)] = blocks
             prompt = np.asarray([req.prompt], np.int32)
             if self._chunked_prefill is not None and t0 > self._prefill_chunk:
-                small = init_caches(self.cfg, 1, device=self.device)
+                small = self._cache_factory(self.cfg, 1, device=self.device)
                 logits, small = self._chunked_prefill(
                     self.weights, self._to_device(prompt), small
                 )

@@ -219,7 +219,10 @@ def load_aqlm_llama(
 
 
 def save_lutvq(path: str, cfg: LlamaConfig, weights: LlamaWeights) -> None:
-    """Write the model in the native (kernel-ready) format."""
+    """Write the model in the native (kernel-ready) format, per-layer or
+    stacked (``models.llama.stack_llama_weights``: one layer entry whose
+    tensors are ``(L, ...)``, ``n_layer_entries`` 1), as the JAX package's
+    ``save_lutvq`` writes either."""
     tensors: dict[str, torch.Tensor] = {
         "embed": weights.embed, "final_norm": weights.final_norm,
         "lm_head": weights.lm_head.w,
@@ -255,12 +258,16 @@ def save_lutvq(path: str, cfg: LlamaConfig, weights: LlamaWeights) -> None:
 
 
 def load_lutvq(path: str, device="cuda") -> tuple[LlamaConfig, LlamaWeights]:
-    """Read a native checkpoint (either package's) → ``(cfg, weights)``."""
+    """Read a native checkpoint (either package's) → ``(cfg, weights)``; a
+    stacked file (one layer entry of ``(L, ...)`` tensors) gives stacked
+    weights, for ``llama_forward``'s scan mode."""
     meta = json.loads(safetensors_io.metadata(path)["lutvq"])
     host = safetensors_io.load_file(path)
     cfg = LlamaConfig(**meta["config"])
-    if meta["n_layer_entries"] != cfg.n_layers:
-        raise NotImplementedError("stacked (scan) weights are not ported")
+    entries = meta["n_layer_entries"]
+    stacked = entries == 1 and host["layer.0.attn_norm"].ndim == 2
+    if (host["layer.0.attn_norm"].shape[0] if stacked else entries) != cfg.n_layers:
+        raise ValueError(f"{path}: {entries} layer entries for {cfg.n_layers} layers")
 
     def get(name):
         return host[name].to(device)

@@ -12,6 +12,7 @@ from tpu_lutvq_torch.models.llama import (
     LlamaConfig,
     LlamaWeights,
     init_caches,
+    init_stacked_caches,
     llama_decode_step,
     llama_forward,
 )
@@ -64,6 +65,40 @@ def make_chunked_prefill(
                 cfg, weights, tokens[:, c0:c1], caches, c0, strategy=strategy,
                 window=bucket_window(c1, cfg.max_seq), attn=attn, variant=variant,
                 quality=quality, logits_mode="last",
+            )
+        return logits[:, -1], caches
+
+    return prefill
+
+
+def make_fused_chunked_prefill(
+    cfg: LlamaConfig,
+    *,
+    chunk: int = 1024,
+    strategy: str = "auto",
+    variant: str = "auto",
+    attn: str = "auto",
+    quality: str = "exact",
+):
+    """Chunked prefill into a stacked cache made inside the call
+    (``generate.py:116-172``): ``prefill(weights, tokens) -> (last_logits
+    (B, vocab), stacked caches)``.  Every full chunk, then the tail chunk,
+    attends at the one window ``bucket_window(T)``, as the reference's
+    single compiled program does.  The reference fuses the chunks to keep
+    the cache from crossing a call boundary; here the chunks run eagerly
+    into the one stacked cache, written in place."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+
+    def prefill(weights: LlamaWeights, tokens: torch.Tensor):
+        b, t = tokens.shape
+        win = bucket_window(t, cfg.max_seq)
+        caches = init_stacked_caches(cfg, b, device=weights.embed.device)
+        logits = None
+        for c0 in range(0, t, chunk):
+            logits, caches = llama_forward(
+                cfg, weights, tokens[:, c0 : c0 + chunk], caches, c0, strategy=strategy,
+                window=win, attn=attn, variant=variant, quality=quality, logits_mode="last",
             )
         return logits[:, -1], caches
 
@@ -168,10 +203,13 @@ def generate(
     positions.  Output rows are left-aligned: ``tokens[i]`` holds prompt_i,
     then its generated tokens, then padding; ``lengths[i]`` marks the valid
     prefix.  ``plain=True`` runs the kernels' plain versions (reference run).
+
+    ``stacked_kv=True`` serves the hybrid container (``generate.py:310-314``):
+    one stacked ``(L, ...)`` cache, per-layer weights (or stacked ones:
+    scan mode), each layer's rows written into its slab in place and read
+    there.  The tokens and logits are the tuple caches' bit for bit: the
+    same kernels read the same bytes.
     """
-    if stacked_kv:
-        raise NotImplementedError(
-            "stacked_kv is not ported (ROADMAP: the stacked and hybrid cache container)")
     device = weights.embed.device
     ragged = isinstance(prompt, (list, tuple))
     if ragged:
@@ -195,7 +233,7 @@ def generate(
             )
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    caches = init_caches(cfg, b, device=device)
+    caches = (init_stacked_caches if stacked_kv else init_caches)(cfg, b, device=device)
     kw = dict(strategy=strategy, plain=plain)
 
     if ragged:

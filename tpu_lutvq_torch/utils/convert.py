@@ -18,9 +18,7 @@ from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ
 from tpu_lutvq_torch.models.kv_cache import KVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear
 from tpu_lutvq_torch.models.paged_cache import PagedKVCache
-from tpu_lutvq_torch.models.llama import LayerWeights, LlamaConfig, LlamaWeights
-
-_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+from tpu_lutvq_torch.models.llama import _PROJECTIONS, LayerWeights, LlamaConfig, LlamaWeights
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -51,12 +49,14 @@ def packed_from_numpy(p, device="cuda") -> PackedVQ:
 
 
 def llama_from_numpy(cfg: LlamaConfig, tree, device="cuda") -> LlamaWeights:
-    """A JAX ``LlamaWeights`` (per-layer tuple, numpy leaves) → the port's."""
-    if len(tree.layers) != cfg.n_layers:
-        raise ValueError(
-            f"tree has {len(tree.layers)} layers, cfg {cfg.n_layers} "
-            "(stacked weights are not ported)"
-        )
+    """A JAX ``LlamaWeights`` (numpy leaves) → the port's: a per-layer
+    tuple, or stacked weights (the output of the JAX package's
+    ``stack_llama_weights``: one entry whose leaves are ``(L, ...)``), which
+    stay stacked, for ``llama_forward``'s scan mode."""
+    stacked = len(tree.layers) == 1 and np.ndim(tree.layers[0].attn_norm) == 2
+    n = np.shape(tree.layers[0].attn_norm)[0] if stacked else len(tree.layers)
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, cfg {cfg.n_layers}")
     layers = tuple(
         LayerWeights(
             attn_norm=tensor_from_numpy(lw.attn_norm, device),
