@@ -1,0 +1,25 @@
+"""The statistics every reader shares."""
+
+from __future__ import annotations
+
+import math
+import statistics
+
+
+def percentile(values, q: float):
+    """The ``q``-th percentile (0-100) by linear interpolation between the
+    closest ranks (numpy's default); None for no values."""
+    xs = sorted(values)
+    if not xs:
+        return None
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def spread(values) -> float:
+    """Distance between the first and third quartile as a share of the
+    median (``statistics.quantiles(values, n=4)``)."""
+    q1, q2, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / q2
