@@ -19,6 +19,8 @@ the CUDA device unless a ``device`` argument says otherwise.
                                  the safetensors reader and writer
 - ``tpu_lutvq_torch.ann``     — PQ/RQ ANN search engine: k-means, f32/int8/int16
                                  table scans, refined search, SDC, OPQ
+- ``tpu_lutvq_torch.tracing`` — profiler ranges (``span``) and the batchers'
+                                 tick account (``TICKS``)
 """
 
 from tpu_lutvq_torch.core.config import (  # noqa: F401

@@ -6,7 +6,8 @@ device time on the H100 (``dataflow.traffic.pick_strategy``, fitted to the
 card's measured sweep), and nibble and out_group packs stay on the LUT-GEMV
 kernel.  ``DenseLinear`` and ``ChunkedVQLinear`` (the two 1x16 tiers a
 checkpoint loads into) take the same ``apply`` call, so any of the three
-fills a projection slot.
+fills a projection slot.  Every ``apply`` is the range ``lutvq.proj``
+while a profiler runs (``tpu_lutvq_torch.tracing.span``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from tpu_lutvq_torch.core.params import VQParams, init_vq_params
 from tpu_lutvq_torch.dataflow.traffic import pick_strategy
 from tpu_lutvq_torch.kernels.dequant_mm import dequant_matmul
 from tpu_lutvq_torch.kernels.lut_gemv import PackedVQ, local_view, lut_gemv, pack_params
+from tpu_lutvq_torch.tracing import span
 
 
 class DenseLinear(NamedTuple):
@@ -41,7 +43,8 @@ class DenseLinear(NamedTuple):
     def apply(self, cfg, x: torch.Tensor, **_kw) -> torch.Tensor:
         """``QuantizedLinear.apply``'s call (cfg, strategy, variant, quality
         and plain ignored): ``x @ w.T`` as float32."""
-        return self(x).float()
+        with span("lutvq.proj"):
+            return self(x).float()
 
 
 class ChunkedVQLinear(NamedTuple):
@@ -72,20 +75,21 @@ class ChunkedVQLinear(NamedTuple):
     def apply(self, cfg, x: torch.Tensor, *, chunk: int = 512, **_kw) -> torch.Tensor:
         """``(..., d_in) → (..., d_out)`` f32 (``linear.py:98-127``); out row
         j is code row j // out_g, block row j % out_g."""
-        lead = x.shape[:-1]
-        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
-        r_out, g, ncb = self.codes.shape
-        ys = []
-        for c0 in range(0, r_out, chunk):
-            c = self.codes[c0 : c0 + chunk].int()  # (rows, g, ncb)
-            w = self.codebooks[:, 0][:, c[..., 0]]  # (out_g, rows, g, d)
-            for nn in range(1, ncb):
-                w = w + self.codebooks[:, nn][:, c[..., nn]]
-            ys.append(xb @ w.transpose(0, 1).reshape(-1, self.d_in).T)
-        y = torch.cat(ys, dim=1).float()
-        if self.scales is not None:
-            y = y * self.scales[None, :]
-        return y.reshape(*lead, self.d_out)
+        with span("lutvq.proj"):
+            lead = x.shape[:-1]
+            xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+            r_out, g, ncb = self.codes.shape
+            ys = []
+            for c0 in range(0, r_out, chunk):
+                c = self.codes[c0 : c0 + chunk].int()  # (rows, g, ncb)
+                w = self.codebooks[:, 0][:, c[..., 0]]  # (out_g, rows, g, d)
+                for nn in range(1, ncb):
+                    w = w + self.codebooks[:, nn][:, c[..., nn]]
+                ys.append(xb @ w.transpose(0, 1).reshape(-1, self.d_in).T)
+            y = torch.cat(ys, dim=1).float()
+            if self.scales is not None:
+                y = y * self.scales[None, :]
+            return y.reshape(*lead, self.d_out)
 
 
 class QuantizedLinear(NamedTuple):
@@ -116,44 +120,45 @@ class QuantizedLinear(NamedTuple):
         it to ``quality``: "exact" → the bf16x2 tables, "fast" → the W8A8
         tables.  ``plain=True`` runs the kernels' plain versions on any
         device (reference runs only)."""
-        lead = x.shape[:-1]
-        xb = x.reshape(-1, x.shape[-1])
-        if strategy == "auto":
-            strategy = pick_strategy(cfg, self.packed.d_out, xb.shape[0])
-            if self.packed.nibbles or self.packed.out_group > 1:
-                strategy = "lut_gemv"  # the only kernels that read these layouts
-        elif strategy != "lut_gemv" and self.packed.out_group > 1:
-            raise ValueError(
-                f"strategy {strategy!r} does not support out_group > 1 packs; "
-                "use 'lut_gemv' (or 'auto')"
-            )
-        if strategy == "lut_gemv":
-            y = lut_gemv(cfg, self.packed, xb, variant=variant, plain=plain)
-        elif strategy == "dequant_mm":
-            if variant in ("f32", "i8"):
-                tables = variant
-            else:
-                tables = "i8" if quality == "fast" else "bf16x2"
-            y = dequant_matmul(cfg, self.packed, xb, tables=tables, plain=plain)
-        elif strategy == "dense_bf16":
-            from tpu_lutvq_torch.core.golden import dequantize
-
-            if self.packed.nibbles:
+        with span("lutvq.proj"):
+            lead = x.shape[:-1]
+            xb = x.reshape(-1, x.shape[-1])
+            if strategy == "auto":
+                strategy = pick_strategy(cfg, self.packed.d_out, xb.shape[0])
+                if self.packed.nibbles or self.packed.out_group > 1:
+                    strategy = "lut_gemv"  # the only kernels that read these layouts
+            elif strategy != "lut_gemv" and self.packed.out_group > 1:
                 raise ValueError(
-                    "dense_bf16 reconstruction cannot read nibble-packed codes; "
-                    "use strategy='lut_gemv' (or pack with nibble_pack=False)"
+                    f"strategy {strategy!r} does not support out_group > 1 packs; "
+                    "use 'lut_gemv' (or 'auto')"
                 )
-            p = local_view(self.packed)
-            codes = p.codes_t[: cfg.n_groups, : p.d_out].T.reshape(
-                p.d_out, cfg.n_codebook, cfg.n_subvec
-            ).transpose(1, 2)
-            scales = None if p.scales is None else p.scales[0, : p.d_out]
-            zps = None if p.zero_points is None else p.zero_points[0, : p.d_out]
-            w = dequantize(cfg, VQParams(p.codebook, codes, scales, zps))
-            y = xb.float() @ w.T
-        else:
-            raise ValueError(f"unknown strategy {strategy!r}")
-        return y.reshape(*lead, y.shape[-1])
+            if strategy == "lut_gemv":
+                y = lut_gemv(cfg, self.packed, xb, variant=variant, plain=plain)
+            elif strategy == "dequant_mm":
+                if variant in ("f32", "i8"):
+                    tables = variant
+                else:
+                    tables = "i8" if quality == "fast" else "bf16x2"
+                y = dequant_matmul(cfg, self.packed, xb, tables=tables, plain=plain)
+            elif strategy == "dense_bf16":
+                from tpu_lutvq_torch.core.golden import dequantize
+
+                if self.packed.nibbles:
+                    raise ValueError(
+                        "dense_bf16 reconstruction cannot read nibble-packed codes; "
+                        "use strategy='lut_gemv' (or pack with nibble_pack=False)"
+                    )
+                p = local_view(self.packed)
+                codes = p.codes_t[: cfg.n_groups, : p.d_out].T.reshape(
+                    p.d_out, cfg.n_codebook, cfg.n_subvec
+                ).transpose(1, 2)
+                scales = None if p.scales is None else p.scales[0, : p.d_out]
+                zps = None if p.zero_points is None else p.zero_points[0, : p.d_out]
+                w = dequantize(cfg, VQParams(p.codebook, codes, scales, zps))
+                y = xb.float() @ w.T
+            else:
+                raise ValueError(f"unknown strategy {strategy!r}")
+            return y.reshape(*lead, y.shape[-1])
 
 
 def make_quantized_linear(

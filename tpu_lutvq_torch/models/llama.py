@@ -7,6 +7,13 @@ every projection a ``QuantizedLinear``.  Attention runs the flash kernels
 (``attn="flash"``), the einsum form of the JAX package's ``attn="xla"``
 path (bf16 operands, f32 accumulation, computed as f32 products of
 bf16-rounded values), or whichever ``resolve_attn`` picks (``"auto"``).
+
+Profiler ranges (``tpu_lutvq_torch.tracing.span``, recorded only while a
+profiler runs): ``lutvq.layer`` a decoder layer; inside it ``lutvq.norm``
+each RMSNorm, ``lutvq.rope`` the rotary embedding of q and of k,
+``lutvq.attn`` the cache write (``lutvq.kv_write``) and attention (slab,
+paged or stacked), and each projection ``lutvq.proj`` (``models.linear``);
+``lutvq.head`` the final norm and ``lm_head``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from tpu_lutvq_torch.models.kv_cache import (
 )
 from tpu_lutvq_torch.models.paged_cache import PagedKVCache
 from tpu_lutvq_torch.models.linear import DenseLinear, QuantizedLinear, make_quantized_linear
+from tpu_lutvq_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,20 +162,22 @@ def init_llama(
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)) * w
+    with span("lutvq.norm"):
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + eps)) * w
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, T, H, Dh); pos: (B, T) absolute positions."""
-    half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    ang = pos[..., None].float() * freqs  # (B, T, half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    with span("lutvq.rope"):
+        half = x.shape[-1] // 2
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+        ang = pos[..., None].float() * freqs  # (B, T, half)
+        cos = torch.cos(ang)[:, :, None, :]
+        sin = torch.sin(ang)[:, :, None, :]
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -283,33 +293,37 @@ def _block(
     tpos = pos[:, None] + torch.arange(t, device=x.device)[None, :]  # (B, T)
     q = rope(q, tpos, cfg.rope_theta)
     k = rope(k, tpos, cfg.rope_theta)
-    if stacked is not None:
-        caches_all, li = stacked
-        update_cache_stacked(caches_all, li, k, v, cache_pos)
-        s_max = caches_all.k_q.shape[3]
-        w = min(window if window is not None else s_max, s_max)
-        attn_r = resolve_attn(attn, batch=b, window=w, t=t, heads=cfg.n_heads, stacked=True)
-        if t == 1 and attn_r == "flash":
-            # decode reads the stacked planes at layer li in place (D's layer= mode)
-            out = flash_decode_attention(
-                q[:, 0], caches_all.k_q, caches_all.v_q, caches_all.k_scale,
-                caches_all.v_scale, pos, window=w, layer=li, plain=kw["plain"],
-            )
-            attn_out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-        else:  # the layer's view, read as the tuple path reads its cache
-            attn_out = _attention(cfg, q, layer_view(caches_all, li), pos, window, attn_r,
-                                  kw["plain"])
-    elif isinstance(cache, PagedKVCache):
-        if t != 1:
-            raise ValueError(
-                "paged caches decode one token per step; prefill runs on a slab "
-                "cache and is copied in with PagedKVCache.write_slot(s)"
-            )
-        cache = cache.append(k, v, pos)
-        attn_out = _paged_attention(cfg, q, cache, pos, window, attn, kw["plain"])
-    else:
-        cache = update_cache(cache, k, v, cache_pos)
-        attn_out = _attention(cfg, q, cache, pos, window, attn, kw["plain"])
+    with span("lutvq.attn"):
+        if stacked is not None:
+            caches_all, li = stacked
+            with span("lutvq.kv_write"):
+                update_cache_stacked(caches_all, li, k, v, cache_pos)
+            s_max = caches_all.k_q.shape[3]
+            w = min(window if window is not None else s_max, s_max)
+            attn_r = resolve_attn(attn, batch=b, window=w, t=t, heads=cfg.n_heads, stacked=True)
+            if t == 1 and attn_r == "flash":
+                # decode reads the stacked planes at layer li in place (D's layer= mode)
+                out = flash_decode_attention(
+                    q[:, 0], caches_all.k_q, caches_all.v_q, caches_all.k_scale,
+                    caches_all.v_scale, pos, window=w, layer=li, plain=kw["plain"],
+                )
+                attn_out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+            else:  # the layer's view, read as the tuple path reads its cache
+                attn_out = _attention(cfg, q, layer_view(caches_all, li), pos, window, attn_r,
+                                      kw["plain"])
+        elif isinstance(cache, PagedKVCache):
+            if t != 1:
+                raise ValueError(
+                    "paged caches decode one token per step; prefill runs on a slab "
+                    "cache and is copied in with PagedKVCache.write_slot(s)"
+                )
+            with span("lutvq.kv_write"):
+                cache = cache.append(k, v, pos)
+            attn_out = _paged_attention(cfg, q, cache, pos, window, attn, kw["plain"])
+        else:
+            with span("lutvq.kv_write"):
+                cache = update_cache(cache, k, v, cache_pos)
+            attn_out = _attention(cfg, q, cache, pos, window, attn, kw["plain"])
     x = x + lw.wo.apply(vq_o, attn_out, **kw)
     xn = rms_norm(x, lw.mlp_norm, cfg.rms_eps)
     gate = lw.w_gate.apply(vq_h, xn, **kw)
@@ -385,24 +399,27 @@ def llama_forward(
     x = weights.embed[tokens.to(device).long()].float()
     if stacked:
         for li, lw in enumerate(layers):
-            x, _ = _block(cfg, lw, x, None, pos_vec, kw, window, attn, cache_pos,
-                          stacked=(caches, li))
+            with span("lutvq.layer"):
+                x, _ = _block(cfg, lw, x, None, pos_vec, kw, window, attn, cache_pos,
+                              stacked=(caches, li))
         new_caches = caches
     else:
         new_caches = []
         for lw, cache in zip(layers, caches):
-            x, cache = _block(cfg, lw, x, cache, pos_vec, kw, window, attn, cache_pos)
+            with span("lutvq.layer"):
+                x, cache = _block(cfg, lw, x, cache, pos_vec, kw, window, attn, cache_pos)
             new_caches.append(cache)
         new_caches = tuple(new_caches)
-    if logits_mode == "last":
-        x = x[:, -1:]
-    elif logits_mode == "index":
-        idx = logits_idx.to(device=device, dtype=torch.long)
-        x = x[torch.arange(b, device=device), idx][:, None]  # (B, 1, D)
-    elif logits_mode != "all":
-        raise ValueError(f"unknown logits_mode {logits_mode!r}")
-    x = rms_norm(x, weights.final_norm, cfg.rms_eps)
-    logits = weights.lm_head(x).float()
+    with span("lutvq.head"):
+        if logits_mode == "last":
+            x = x[:, -1:]
+        elif logits_mode == "index":
+            idx = logits_idx.to(device=device, dtype=torch.long)
+            x = x[torch.arange(b, device=device), idx][:, None]  # (B, 1, D)
+        elif logits_mode != "all":
+            raise ValueError(f"unknown logits_mode {logits_mode!r}")
+        x = rms_norm(x, weights.final_norm, cfg.rms_eps)
+        logits = weights.lm_head(x).float()
     return logits, new_caches
 
 

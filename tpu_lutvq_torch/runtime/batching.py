@@ -14,11 +14,19 @@ host reads the device back once per tick (the tick's tokens), so
 What the reference fuses into one jitted dispatch (prefill + slot write +
 first-token sample, a decode roll) runs here as the same operations in
 order on the device's stream; the caches are updated in place.
+
+Each tick runs inside the span ``lutvq.tick`` (admission groups
+``lutvq.admit``, decode steps ``lutvq.decode_step``, samplers
+``lutvq.sample``, host-to-device staging ``lutvq.stage``, the readback
+``lutvq.collect``), recorded only under a profiler; and every collected
+tick appends its :class:`~tpu_lutvq_torch.tracing.TickRecord` to
+``tracing.TICKS`` (its stamps, admission groups and decode steps).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,6 +47,7 @@ from tpu_lutvq_torch.runtime.generate import (
     make_chunked_prefill,
     sample_logits_vec,
 )
+from tpu_lutvq_torch.tracing import BATCHER_IDS, TICKS, Admission, TickRecord, span
 
 
 @dataclasses.dataclass
@@ -156,6 +165,8 @@ class ContinuousBatcher:
             )
         self.wave_admits = 0  # requests admitted through waves
         self.completed: list[Request] = []
+        self.batcher_id = next(BATCHER_IDS)  # tags this batcher's records in TICKS
+        self._admissions: list[Admission] = []  # the dispatching tick's admission groups
 
     # -- public API --
 
@@ -195,24 +206,27 @@ class ContinuousBatcher:
         while steps < max_steps:
             if prev is None and not self.has_work:
                 break
-            nxt = self._dispatch_tick(horizon, prev=prev)
-            if prev is not None:
-                self._collect_tick(prev)
-            elif nxt is None:
+            with span("lutvq.tick"):
+                nxt = self._dispatch_tick(horizon, prev=prev)
+                if prev is not None:
+                    self._collect_tick(prev)
+            if prev is None and nxt is None:
                 break  # nothing active and nothing admissible
             prev = nxt
             steps += 1
         if prev is not None:
-            self._collect_tick(prev)
+            with span("lutvq.tick"):
+                self._collect_tick(prev)
         done, self.completed = self.completed, []
         return done
 
     def step(self, horizon: int = 1) -> None:
         """One tick: admit, then decode ``horizon`` tokens for every active
         slot, then read the tokens back."""
-        ticket = self._dispatch_tick(horizon, prev=None)
-        if ticket is not None:
-            self._collect_tick(ticket)
+        with span("lutvq.tick"):
+            ticket = self._dispatch_tick(horizon, prev=None)
+            if ticket is not None:
+                self._collect_tick(ticket)
 
     # -- device programs --
 
@@ -220,10 +234,11 @@ class ContinuousBatcher:
         """Host array → device tensor without waiting on the device (a
         pinned staging copy; a plain copy from pageable memory would
         synchronise the stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
+        with span("lutvq.stage"):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.clone()
 
     def _blocks_needed(self, req: Request) -> int:
         return min(-(-(len(req.prompt) + req.max_new_tokens) // self._bs) + 1,
@@ -262,8 +277,9 @@ class ContinuousBatcher:
             pc.write_slots(s, slots_dev, t, t0s=t0s_dev)
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
-        return sample_logits_vec(logits, self.generator,
-                                 self._to_device(np.asarray(temps, np.float32)))
+        with span("lutvq.sample"):
+            return sample_logits_vec(logits, self.generator,
+                                     self._to_device(np.asarray(temps, np.float32)))
 
     def _decode(self, tok_vec, pos: np.ndarray, temps: np.ndarray, horizon: int,
                 window: int) -> torch.Tensor:
@@ -272,14 +288,16 @@ class ContinuousBatcher:
         temps_dev = self._to_device(temps)
         out = []
         for _ in range(horizon):
-            logits, self.caches = llama_decode_step(
-                self.cfg, self.weights, tok_vec, self.caches, pos_dev,
-                strategy=self.strategy, attn=self.attn, window=window,
-                quality=self.quality,
-            )
-            tok_vec = sample_logits_vec(logits, self.generator, temps_dev)
-            out.append(tok_vec)
-            pos_dev = pos_dev + 1
+            with span("lutvq.decode_step"):
+                logits, self.caches = llama_decode_step(
+                    self.cfg, self.weights, tok_vec, self.caches, pos_dev,
+                    strategy=self.strategy, attn=self.attn, window=window,
+                    quality=self.quality,
+                )
+                with span("lutvq.sample"):
+                    tok_vec = sample_logits_vec(logits, self.generator, temps_dev)
+                out.append(tok_vec)
+                pos_dev = pos_dev + 1
         return torch.stack(out)
 
     # -- scheduler internals --
@@ -320,15 +338,18 @@ class ContinuousBatcher:
                 table_row = np.zeros((1, self._max_blocks), np.int32)
                 table_row[0, : len(blocks)] = blocks
             prompt = np.asarray([req.prompt], np.int32)
-            if self._chunked_prefill is not None and t0 > self._prefill_chunk:
-                small = self._cache_factory(self.cfg, 1, device=self.device)
-                logits, small = self._chunked_prefill(
-                    self.weights, self._to_device(prompt), small
-                )
-            else:
-                logits, small = self._admit_prefill(prompt)
-            self._write_slots(small, [slot], t0, table_rows=table_row)
-            tok = self._sample(logits, [req.temperature])
+            chunked = self._chunked_prefill is not None and t0 > self._prefill_chunk
+            with span("lutvq.admit"):
+                if chunked:
+                    small = self._cache_factory(self.cfg, 1, device=self.device)
+                    logits, small = self._chunked_prefill(
+                        self.weights, self._to_device(prompt), small
+                    )
+                else:
+                    logits, small = self._admit_prefill(prompt)
+                self._write_slots(small, [slot], t0, table_rows=table_row)
+                tok = self._sample(logits, [req.temperature])
+            self._admissions.append(Admission([t0], t0))
             self.active[slot] = req
             self.slot_pos[slot] = t0 + 1
             deferred.append(([slot], [req], tok))
@@ -383,15 +404,18 @@ class ContinuousBatcher:
         for j, r in enumerate(reqs):
             prompts[j, : len(r.prompt)] = r.prompt
         t0s = [len(r.prompt) for r in reqs]
-        logits, small = self._admit_prefill(prompts, last_idx=np.asarray(t0s, np.int64) - 1)
-        if self.paged:
-            for slot, blocks in zip(slots, admitted_blocks):
-                self._slot_blocks[slot] = blocks
-                self._slot_capacity[slot] = len(blocks) * self._bs
-            self._write_slots(small, slots, bucket, t0s=t0s, table_rows=table_rows)
-        else:
-            self._write_slots(small, slots, bucket)
-        toks = self._sample(logits, [r.temperature for r in reqs])
+        with span("lutvq.admit"):
+            logits, small = self._admit_prefill(prompts,
+                                                last_idx=np.asarray(t0s, np.int64) - 1)
+            if self.paged:
+                for slot, blocks in zip(slots, admitted_blocks):
+                    self._slot_blocks[slot] = blocks
+                    self._slot_capacity[slot] = len(blocks) * self._bs
+                self._write_slots(small, slots, bucket, t0s=t0s, table_rows=table_rows)
+            else:
+                self._write_slots(small, slots, bucket)
+            toks = self._sample(logits, [r.temperature for r in reqs])
+        self._admissions.append(Admission(t0s, k * bucket))
         for slot, req in zip(slots, reqs):
             self.active[slot] = req
             self.slot_pos[slot] = len(req.prompt) + 1
@@ -412,8 +436,13 @@ class ContinuousBatcher:
         Returns a ticket for :meth:`_collect_tick`, or None if nothing is
         active.  With ``prev`` (the previous ticket, not yet collected),
         slots carried over from it take their token from prev's device
-        output and their position from prev's dispatch position + horizon."""
+        output and their position from prev's dispatch position + horizon.
+        The ticket's ``record`` is the tick's account, appended to ``TICKS``
+        when the tick is collected."""
+        record = TickRecord(self.batcher_id, time.perf_counter())
+        self._admissions = record.admissions
         deferred = self._admit()
+        record.t_admitted = time.perf_counter()
         slots = [i for i, r in enumerate(self.active) if r is not None]
         if not slots:
             return None
@@ -455,6 +484,8 @@ class ContinuousBatcher:
             idx = self._to_device(np.asarray(g_slots, np.int64))
             tok_vec[idx] = g_toks.to(torch.int32)
         toks = self._decode(tok_vec, pos, temps, horizon, window)
+        record.t_dispatched = time.perf_counter()
+        record.steps = horizon
         return {
             "toks": toks,  # (horizon, B) on the device
             "deferred": deferred,
@@ -462,14 +493,16 @@ class ContinuousBatcher:
             "reqs": {i: self.active[i] for i in slots},
             "h": horizon,
             "pos": pos,
+            "record": record,
         }
 
     def _collect_tick(self, ticket) -> None:
         """Read a queued tick's tokens back (one transfer) and do the host
-        bookkeeping."""
+        bookkeeping, and append the tick's record to ``TICKS``."""
         deferred = ticket["deferred"]
-        parts = [ticket["toks"].reshape(-1)] + [g[2].reshape(-1) for g in deferred]
-        flat = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
+        with span("lutvq.collect"):
+            parts = [ticket["toks"].reshape(-1)] + [g[2].reshape(-1) for g in deferred]
+            flat = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
         toks = flat[: ticket["toks"].numel()].reshape(ticket["toks"].shape)
         at = toks.size
         for g_slots, g_reqs, _ in deferred:
@@ -493,3 +526,6 @@ class ContinuousBatcher:
                 self.completed.append(req)
                 self.active[i] = None
                 self._release_slot(i)
+        record = ticket["record"]
+        record.t_end = time.perf_counter()
+        TICKS.append(record)

@@ -16,6 +16,7 @@ from tpu_lutvq_torch.models.llama import (
     llama_decode_step,
     llama_forward,
 )
+from tpu_lutvq_torch.tracing import span
 
 
 class GenerationResult(NamedTuple):
@@ -50,6 +51,7 @@ def make_chunked_prefill(
     offset ``c0`` (the flash-prefill kernel once ``attn`` resolves to it).
 
     ``quality`` goes to every chunk's projections (``llama_forward``).
+    Each chunk runs inside the span ``lutvq.prefill_chunk``.
 
     Returns ``prefill(weights, tokens, caches) -> (last_logits (B, vocab),
     caches)``, the caches filled in place."""
@@ -61,11 +63,12 @@ def make_chunked_prefill(
         logits = None
         for c0 in range(0, t, chunk):
             c1 = min(c0 + chunk, t)
-            logits, caches = llama_forward(
-                cfg, weights, tokens[:, c0:c1], caches, c0, strategy=strategy,
-                window=bucket_window(c1, cfg.max_seq), attn=attn, variant=variant,
-                quality=quality, logits_mode="last",
-            )
+            with span("lutvq.prefill_chunk"):
+                logits, caches = llama_forward(
+                    cfg, weights, tokens[:, c0:c1], caches, c0, strategy=strategy,
+                    window=bucket_window(c1, cfg.max_seq), attn=attn, variant=variant,
+                    quality=quality, logits_mode="last",
+                )
         return logits[:, -1], caches
 
     return prefill
@@ -96,10 +99,12 @@ def make_fused_chunked_prefill(
         caches = init_stacked_caches(cfg, b, device=weights.embed.device)
         logits = None
         for c0 in range(0, t, chunk):
-            logits, caches = llama_forward(
-                cfg, weights, tokens[:, c0 : c0 + chunk], caches, c0, strategy=strategy,
-                window=win, attn=attn, variant=variant, quality=quality, logits_mode="last",
-            )
+            with span("lutvq.prefill_chunk"):
+                logits, caches = llama_forward(
+                    cfg, weights, tokens[:, c0 : c0 + chunk], caches, c0, strategy=strategy,
+                    window=win, attn=attn, variant=variant, quality=quality,
+                    logits_mode="last",
+                )
         return logits[:, -1], caches
 
     return prefill
