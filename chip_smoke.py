@@ -100,7 +100,13 @@ Phases, one result line each; any failure raises and exits non-zero:
      safetensors writer) load back equal, ``save_lutvq``/``load_lutvq`` is
      bit-equal with the same greedy tokens, and again at out_group_size 8
      (B at 8 pseudo-rows, f32 tables against the numpy dequant); (c) a
-     4096x4096 1x16 projection in each ``one_x16`` mode.
+     4096x4096 1x16 projection in each ``one_x16`` mode;
+  graphs (after the stacked phase, on phase 3's model): batcher runs (i)-(iv),
+     the stacked run and a sampled run (temperature 0.8, ``horizon=4``,
+     pipelined), each served with the decode roll's CUDA graphs and again
+     with the eager roll (the method the graphs capture): tokens, cache
+     bytes and launch counts must be equal, and replays must serve every
+     tick after each (window, horizon)'s first.
 Each phase prints its seconds.  The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -166,6 +172,7 @@ import torch
 
 from tpu_lutvq_torch.dataflow.chips import default_chip
 from tpu_lutvq_torch.dataflow.sweep import device_ms, time_ms
+from tpu_lutvq_torch.runtime.decode_graph import same_cache_bytes
 
 CHIP = default_chip()
 # max|kernel - plain| / max|plain| per call.  Readings on the H100 were
@@ -388,6 +395,7 @@ PREFILL_CHUNK = 256
 FUSED_T = 700
 STACKED_CONTEXT = 1900
 STACKED_STEPS = 32
+GRAPH_TEMPERATURE = 0.8  # the graphs phase's sampled run
 ROUTE_ROWS = (1, 2, 4, 8)
 ROUTE_TOL = 1.10
 
@@ -945,25 +953,25 @@ def truncating_folds():
 
 def launched_kernels(fn, calls=5):
     """The CUDA kernels one warm ``fn()`` launches (torch.profiler, the
-    counts of ``calls`` calls over ``calls``, rounded: a kernel event the
-    profiler drops does not change them): {name: count}, without the fills
-    of ``--guard``'s bands."""
+    counts of ``calls`` calls over ``calls``, rounded, each kernel's largest
+    of three profiler sessions: the profiler can drop kernel events, up to
+    every one of a session, and never adds one): {name: count}, without
+    the fills of ``--guard``'s bands."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session that lost every kernel event counts nothing: again
+    counts = {}
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        counts = {e.key: round(e.count / calls) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not (GUARDING and "FillFunctor" in e.key)}  # the guard bands' own fills
-        counts = {k: c for k, c in counts.items() if c}
-        if counts:
-            break
-    return counts
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not (GUARDING and "FillFunctor" in e.key):  # the guard bands' own fills
+                counts[e.key] = max(counts.get(e.key, 0), round(e.count / calls))
+    return {k: c for k, c in counts.items() if c}
 
 
 def phase_tiers(device):
@@ -1714,7 +1722,7 @@ def check_routes(label, launches, expected, names=None):
                                     f"{sorted(want & set(names))}")
 
 
-def serve(cfg, weights, prompts, run_kw=None, watch=None, **kw):
+def serve(cfg, weights, prompts, run_kw=None, watch=None, temperature=0.0, **kw):
     """One batcher run from zeroed launch counters: (outputs by id, seconds,
     launches by kernel, the batcher).  ``watch(batcher)`` runs before it."""
     from tpu_lutvq_torch.runtime import ContinuousBatcher, Request
@@ -1723,7 +1731,7 @@ def serve(cfg, weights, prompts, run_kw=None, watch=None, **kw):
     if watch is not None:
         watch(b)
     for i, p in enumerate(prompts):
-        b.submit(Request(req_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        b.submit(Request(req_id=i, prompt=p, max_new_tokens=NEW_TOKENS, temperature=temperature))
     for mod, name in counters().values():
         setattr(mod, name, 0)
     done, secs = timed(lambda: b.run(**(run_kw or {})))
@@ -1808,6 +1816,136 @@ def phase_batcher(device, cfg, weights):
     check(errs["attn_p_f32"] > LOGITS_TOL, "B=8 step: tolerance passes the p_f32 control")
     # each run's outputs, seconds and launches (the batchers and their caches go)
     return {name: {k: v for k, v in r.items() if k != "batcher"} for name, r in results.items()}
+
+
+def eager_roll(b):
+    """Serve ``b``'s decode rolls with the eager roll called directly (the
+    method its graphs capture), as on the CPU."""
+    b._graphs = None
+
+
+# what a graph's memset and copy nodes are called in the profiler → what the
+# same work is called when launched eagerly
+GRAPH_NODE_NAMES = {"Memset (Unknown)": "Memset (Device)",
+                    "memcpy32_post": "Memcpy DtoD (Device -> Device)"}
+# CUDAGraph.replay's own launches ahead of the graph: the seed and offset
+# fills of each registered generator's Philox state
+RNG_PROLOGUE = "FillFunctor<long>"
+
+
+def kernels_per_call(fn, calls=4):
+    """({name: launches a call}, {name: device µs a call}) of the CUDA work
+    one warm ``fn()`` does, a graph's memset and copy nodes under their eager
+    names.  Launches: the largest over three profiler sessions of ceil(count
+    / calls), since the profiler drops a few events of a session (seen: one
+    at a session's start, tens in 47,000) and never adds one.  µs: the mean
+    over the sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts, us = {}, {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not (GUARDING and "FillFunctor" in e.key):  # the guard bands' own fills
+                k = GRAPH_NODE_NAMES.get(e.key, e.key)
+                counts[k] = max(counts.get(k, 0), -(-e.count // calls))
+                t = getattr(e, "device_time_total", None)
+                us[k] = us.get(k, 0.0) + (e.cuda_time_total if t is None else t) / (3 * calls)
+    return counts, us
+
+
+def replay_against_roll(graphs, eager, key):
+    """One replay of ``graphs``' graph for ``key`` = (window, horizon) held
+    against the eager roll of ``eager`` (a batcher whose roll runs eager) at
+    the same static inputs: (kernels a replay launches, its RNG prologue's
+    fills, kernels the roll launches, launch counts the roll's host code
+    adds, the counts the capture recorded, µs a call of each kernel
+    replayed, the same eager)."""
+    window, horizon = key
+    replay, _, deltas = graphs.graphs[key]
+
+    def roll():
+        return eager._roll(*graphs.static, horizon, window)
+
+    (ks_g, us_g), (ks_e, us_e) = kernels_per_call(replay), kernels_per_call(roll)
+    fills = {k: ks_g.pop(k) for k in list(ks_g) if RNG_PROLOGUE in k}
+    before = {k: getattr(mod, name) for k, (mod, name) in counters().items()}
+    roll()
+    torch.cuda.synchronize()
+    counted = {k: getattr(mod, name) - before[k] for k, (mod, name) in counters().items()}
+    names = {name: k for k, (_, name) in counters().items()}
+    captured = {names[name]: d for (_, name), d in deltas}
+    return ks_g, fills, ks_e, {k: n for k, n in counted.items() if n}, captured, us_g, us_e
+
+
+def phase_graphs(device, cfg, weights):
+    """The decode roll as CUDA graphs: batcher runs (i)-(iv), the stacked
+    run and a sampled run, each against the same run with the eager roll
+    (``eager_roll``): the same tokens, cache bytes and launch counts, and
+    replays serving every tick after each (window, horizon)'s first.  Then
+    each key's graph, replayed once, against the eager roll at the same
+    inputs: the kernels the profiler sees it launch are the roll's, name for
+    name and count for count (besides at most two RNG prologue fills that
+    ``CUDAGraph.replay`` launches itself), and the launch counts a replay
+    adds are those the roll's own host code counts; with each kernel's
+    device time in both."""
+    from tpu_lutvq_torch.tracing import TICKS
+
+    prompts, long_prompts, _ = batcher_prompts(cfg)
+    runs = {
+        "i slab auto": (prompts, {}, {}),
+        "ii paged auto": (prompts, {}, PAGED),
+        "iii slab flash chunked": (long_prompts, dict(horizon=4, pipeline=True),
+                                   dict(attn="flash", prefill_chunk=PREFILL_CHUNK)),
+        "iv slab auto fast": (prompts, {}, dict(quality="fast")),
+        "stacked": (prompts, {}, dict(stacked_kv=True)),
+        "sampled h4 pipelined": (prompts, dict(horizon=4, pipeline=True),
+                                 dict(temperature=GRAPH_TEMPERATURE)),
+    }
+    for name, (ps, run_kw, kw) in runs.items():
+        want, secs_e, launches_e, eager = serve(cfg, weights, ps, run_kw, eager_roll, **kw)
+        got, secs_g, launches_g, graphed = serve(cfg, weights, ps, run_kw, **kw)
+        same_caches = same_cache_bytes(graphed.caches, eager.caches)
+        recs = [r for r in TICKS if r.batcher == graphed.batcher_id and r.steps]
+        steps, replayed = sum(r.steps for r in recs), sum(r.replayed for r in recs)
+        first = sum(not r.replayed for r in recs)
+        print(f"[graphs] {name}: tokens equal {got == want}, caches bit-equal {same_caches}, "
+              f"launches equal {launches_g == launches_e}; {replayed} of {steps} decode steps "
+              f"replayed, {len(graphed._graphs.graphs)} graphs, {first} eager ticks for "
+              f"{len(graphed._graphs.seen)} keys; {secs_e:.2f} s eager, {secs_g:.2f} s graphed "
+              f"(host clock, captures included)")
+        check(got == want, f"graphs {name}: tokens differ from the eager roll's")
+        check(same_caches, f"graphs {name}: cache bytes differ from the eager roll's")
+        check(launches_g == launches_e, f"graphs {name}: launch counts differ from the eager "
+                                        f"roll's: {launches_g} against {launches_e}")
+        check(replayed > 0 and first == len(graphed._graphs.seen),
+              f"graphs {name}: replays did not serve every tick after a key's first")
+        for key in sorted(graphed._graphs.graphs):
+            ks_g, fills, ks_e, counted, captured, us_g, us_e = replay_against_roll(
+                graphed._graphs, eager, key)
+            top = sorted(us_e, key=lambda k: -us_e[k])[:4]
+            differ = {k: (ks_g.get(k, 0), ks_e.get(k, 0)) for k in set(ks_g) | set(ks_e)
+                      if ks_g.get(k, 0) != ks_e.get(k, 0)}
+            print(f"[graphs] {name} {key}: one replay launches {sum(ks_g.values())} kernels and "
+                  f"{sum(fills.values())} RNG prologue fills, the eager roll "
+                  f"{sum(ks_e.values())} kernels, equal by name {not differ}; launch counts a "
+                  f"replay adds {captured}, the roll counts {counted}; device ms "
+                  f"{sum(us_g.values()) / 1e3:.3f} replayed, {sum(us_e.values()) / 1e3:.3f} "
+                  f"eager; µs a call, replayed / eager: "
+                  + ", ".join(f"{k[:40]} {us_g.get(k, 0.0):.0f} / {us_e[k]:.0f}" for k in top))
+            check(not differ, f"graphs {name} {key}: a replay's kernels differ from the eager "
+                              f"roll's (replayed, eager): {differ}")
+            check(sum(fills.values()) <= 2, f"graphs {name} {key}: {fills} ahead of a replay")
+            check(captured == counted, f"graphs {name} {key}: a replay adds {captured} launches, "
+                                       f"the eager roll counts {counted}")
+        del eager, graphed
+    torch.cuda.empty_cache()
 
 
 def first_logits(cfg, weights, prompts, stacked, **kw):
@@ -2987,7 +3125,8 @@ class GuardBands:
         self.guards.append((buf, n_bytes, f"{caller.f_code.co_name}:{caller.f_lineno} "
                                           f"{tuple(shape)} {dtype}"))
         self.live += buf.numel()
-        if self.live > 2 << 30:
+        # a check synchronises the card: never inside a graph capture
+        if self.live > 2 << 30 and not torch.cuda.is_current_stream_capturing():
             self.check("(2 GiB of buffers)")
         return buf[GUARD_PAD:GUARD_PAD + n_bytes].view(dtype).view(shape)
 
@@ -3113,6 +3252,7 @@ def main(mode=None):
         launches[name] = batcher[run]["launches"][name]
     launches.update(run_phase("phase 6", phase_tier_runs, device, cfg, weights, batcher))
     run_phase("stacked", phase_stacked, device, cfg, weights, batcher)
+    run_phase("graphs", phase_graphs, device, cfg, weights)
     del weights, batcher
     torch.cuda.empty_cache()
     launches.update(run_phase("phase 5", phase_ann, device))

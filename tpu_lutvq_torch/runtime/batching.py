@@ -12,15 +12,19 @@ host reads the device back once per tick (the tick's tokens), so
 ``run(pipeline=True)`` can queue tick k+1 before tick k's tokens arrive.
 
 What the reference fuses into one jitted dispatch (prefill + slot write +
-first-token sample, a decode roll) runs here as the same operations in
-order on the device's stream; the caches are updated in place.
+first-token sample) runs here as the same operations in order on the
+device's stream; the caches are updated in place.  The decode roll, which
+the reference jits on (window, horizon), is on a CUDA device a CUDA graph
+per (window bucket, horizon) (:mod:`~tpu_lutvq_torch.runtime.decode_graph`):
+eager at a key's first tick, then captured once and replayed.
 
 Each tick runs inside the span ``lutvq.tick`` (admission groups
 ``lutvq.admit``, decode steps ``lutvq.decode_step``, samplers
 ``lutvq.sample``, host-to-device staging ``lutvq.stage``, the readback
 ``lutvq.collect``), recorded only under a profiler; and every collected
 tick appends its :class:`~tpu_lutvq_torch.tracing.TickRecord` to
-``tracing.TICKS`` (its stamps, admission groups and decode steps).
+``tracing.TICKS`` (its stamps, admission groups, decode steps, the
+steps a graph replay served and that replay's device seconds).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from tpu_lutvq_torch.models.llama import (
     llama_forward,
 )
 from tpu_lutvq_torch.models.paged_cache import BlockAllocator, PagedKVCache
+from tpu_lutvq_torch.runtime.decode_graph import DecodeGraphs
 from tpu_lutvq_torch.runtime.generate import (
     bucket_window,
     make_chunked_prefill,
@@ -166,7 +171,10 @@ class ContinuousBatcher:
         self.wave_admits = 0  # requests admitted through waves
         self.completed: list[Request] = []
         self.batcher_id = next(BATCHER_IDS)  # tags this batcher's records in TICKS
-        self._admissions: list[Admission] = []  # the dispatching tick's admission groups
+        self._record: Optional[TickRecord] = None  # the dispatching tick's account
+        self._replay_timer = None  # the dispatching tick's replay's device seconds, if replayed
+        # the decode roll as CUDA graphs by (window, horizon); eager elsewhere
+        self._graphs = DecodeGraphs(self.generator) if self.device.type == "cuda" else None
 
     # -- public API --
 
@@ -283,9 +291,24 @@ class ContinuousBatcher:
 
     def _decode(self, tok_vec, pos: np.ndarray, temps: np.ndarray, horizon: int,
                 window: int) -> torch.Tensor:
-        """``horizon`` decode steps with on-device sampling: (horizon, B)."""
+        """``horizon`` decode steps with on-device sampling: (horizon, B),
+        replayed from the (window, horizon) graph where there is one.  A
+        replay leaves in ``_replay_timer`` a callable giving its device
+        seconds once the tokens are read (else None)."""
         pos_dev = self._to_device(pos)
         temps_dev = self._to_device(temps)
+        self._replay_timer = None
+        if self._graphs is None:
+            return self._roll(tok_vec, pos_dev, temps_dev, horizon, window)
+        toks, self._replay_timer = self._graphs.roll(
+            self._roll, lambda: self.caches, tok_vec, pos_dev, temps_dev, horizon, window)
+        if self._replay_timer is not None:
+            self._record.replayed = horizon
+        return toks
+
+    def _roll(self, tok_vec, pos_dev, temps_dev, horizon: int, window: int) -> torch.Tensor:
+        """The eager roll, which a graph captures: device inputs only, and
+        no host read."""
         out = []
         for _ in range(horizon):
             with span("lutvq.decode_step"):
@@ -349,7 +372,7 @@ class ContinuousBatcher:
                     logits, small = self._admit_prefill(prompt)
                 self._write_slots(small, [slot], t0, table_rows=table_row)
                 tok = self._sample(logits, [req.temperature])
-            self._admissions.append(Admission([t0], t0))
+            self._record.admissions.append(Admission([t0], t0))
             self.active[slot] = req
             self.slot_pos[slot] = t0 + 1
             deferred.append(([slot], [req], tok))
@@ -415,7 +438,7 @@ class ContinuousBatcher:
             else:
                 self._write_slots(small, slots, bucket)
             toks = self._sample(logits, [r.temperature for r in reqs])
-        self._admissions.append(Admission(t0s, k * bucket))
+        self._record.admissions.append(Admission(t0s, k * bucket))
         for slot, req in zip(slots, reqs):
             self.active[slot] = req
             self.slot_pos[slot] = len(req.prompt) + 1
@@ -439,8 +462,7 @@ class ContinuousBatcher:
         output and their position from prev's dispatch position + horizon.
         The ticket's ``record`` is the tick's account, appended to ``TICKS``
         when the tick is collected."""
-        record = TickRecord(self.batcher_id, time.perf_counter())
-        self._admissions = record.admissions
+        record = self._record = TickRecord(self.batcher_id, time.perf_counter())
         deferred = self._admit()
         record.t_admitted = time.perf_counter()
         slots = [i for i, r in enumerate(self.active) if r is not None]
@@ -494,6 +516,7 @@ class ContinuousBatcher:
             "h": horizon,
             "pos": pos,
             "record": record,
+            "replay_s": self._replay_timer,  # the replay's device seconds, read at collect
         }
 
     def _collect_tick(self, ticket) -> None:
@@ -527,5 +550,7 @@ class ContinuousBatcher:
                 self.active[i] = None
                 self._release_slot(i)
         record = ticket["record"]
+        if ticket["replay_s"] is not None:
+            record.replay_s = ticket["replay_s"]()
         record.t_end = time.perf_counter()
         TICKS.append(record)

@@ -65,7 +65,8 @@ class Admission(NamedTuple):
 @dataclasses.dataclass
 class TickRecord:
     """A batcher's account of one tick (one dispatch and its collect), on
-    ``time.perf_counter``: host numbers only, never device tensors."""
+    ``time.perf_counter``: host numbers only, never device tensors (a
+    replay's device seconds are read at collect, once its tokens are)."""
 
     batcher: int  # the batcher's ``batcher_id``
     t_start: float  # dispatch begins
@@ -74,6 +75,8 @@ class TickRecord:
     t_end: float = float("nan")  # the readback and the tick's bookkeeping done
     admissions: list = dataclasses.field(default_factory=list)  # Admission, in order
     steps: int = 0  # decode steps of the roll
+    replayed: int = 0  # of those, the steps a CUDA graph replay served
+    replay_s: float = float("nan")  # that replay's device seconds (CUDA events around it)
 
 
 # every batcher's records, oldest first, appended as each tick is collected
